@@ -193,8 +193,10 @@ class TrackConfig:
     # use_pallas path, ops.pallas_epl): the replica is read at the integer
     # half-chip shift of the code phase from the doubled upsampled table
     # (ops.epl.upsampled_code_doubled), and the code_table passed to
-    # track_block must be that table.  The port runs its plain torch
-    # version; the hand-written kernel is still to come (ROADMAP Queue 2).
+    # track_block must be that table.  With the whole-block scan off
+    # (in_kernel_scan False) each epoch's E/P/L runs as the hand-written
+    # kernel csrc/epl.cu on a CUDA device and as its plain torch version on
+    # the CPU (ops.epl.epl_correlate).
     use_pallas: bool = False
     # Run the whole T-epoch x C-channel loop as one tracking-scan kernel
     # (ops.track_scan).  track_block dispatches to it; the code_table must

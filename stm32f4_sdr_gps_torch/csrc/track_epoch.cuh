@@ -1,9 +1,12 @@
-// Per-channel arithmetic of the tracking-scan kernel (track_scan.cu).
+// Per-channel arithmetic of the tracking-scan kernel (track_scan.cu) and
+// of the per-epoch E/P/L kernel (epl.cu), which share the correlator
+// (halfchip_shift, epl_sample) and the block reduction (block_sum6).
 //
-// Everything here is __host__ __device__: nvcc builds it into the Hopper
-// kernel, and g++ builds the same source (with -D__host__= -D__device__=)
-// into a host library (track_scan_host.cpp) that the CPU tests hold
-// against the plain torch version, ops/track_scan.py:track_scan_reference.
+// Everything but block_sum6 is __host__ __device__: nvcc builds it into
+// the Hopper kernels, and g++ builds the same source (with -D__host__=
+// -D__device__=) into a host library (kernels_host.cpp) that the CPU tests
+// hold against the plain torch versions, ops/track_scan.py:
+// track_scan_reference and ops/epl.py:epl_correlate_halfchip.
 //
 // One call of epoch_update is one 1 ms loop closure of one channel: DLL,
 // polynomial Costas PLL, FLL, false-lock watchdog with its integer LCG
@@ -173,6 +176,38 @@ __host__ __device__ inline void epl_sample(float acc[6], float xr, float xi,
     acc[4] += yr * l;
     acc[5] += yi * l;
 }
+
+#ifdef __CUDACC__
+// Sum each of the six per-thread partials acc[6] over a block of
+// 32 * WARPS threads: the shuffle-down tree within each warp, then the
+// warps in order (kernels_host.cpp block_sums reproduces this order).  The
+// totals are left in thread 0's acc only.  The call ends with thread 0
+// reading s_part after a block barrier, so the caller must not write the
+// same s_part again before every thread has passed one more barrier.
+template <int WARPS>
+__device__ inline void block_sum6(float acc[6], float (*s_part)[6]) {
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+#pragma unroll
+    for (int j = 0; j < 6; ++j) {
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+            acc[j] += __shfl_down_sync(0xffffffffu, acc[j], off);
+    }
+    if (lane == 0) {
+#pragma unroll
+        for (int j = 0; j < 6; ++j) s_part[warp][j] = acc[j];
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        for (int j = 0; j < 6; ++j) {
+            float v = s_part[0][j];
+            for (int w = 1; w < WARPS; ++w) v += s_part[w][j];
+            acc[j] = v;
+        }
+    }
+}
+#endif
 
 // Costas discriminator atan2(qp*sign(ip), |ip|)/pi in half-cycles, as the
 // JAX kernel computes it (pallas_track_scan.py:238-254): octant fold and a

@@ -52,8 +52,6 @@ track_scan_kernel(const float2* __restrict__ x, const float* __restrict__ u2,
 
     const int c = blockIdx.x;
     const int tid = threadIdx.x;
-    const int lane = tid & 31;
-    const int warp = tid >> 5;
 
     for (int j = tid; j < track::U2P; j += THREADS)
         s_u2[j] = u2[(size_t)c * track::U2P + j];
@@ -79,26 +77,10 @@ track_scan_kernel(const float2* __restrict__ x, const float* __restrict__ u2,
             const float2 v = xe[k];
             track::epl_sample(acc, v.x, v.y, k, ph, dopfs, rep);
         }
-#pragma unroll
-        for (int j = 0; j < 6; ++j) {
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1)
-                acc[j] += __shfl_down_sync(0xffffffffu, acc[j], off);
-        }
-        if (lane == 0) {
-#pragma unroll
-            for (int j = 0; j < 6; ++j) s_part[warp][j] = acc[j];
-        }
-        __syncthreads();
+        track::block_sum6<WARPS>(acc, s_part);
         if (tid == 0) {
-            float sums[6];
-            for (int j = 0; j < 6; ++j) {
-                float v = s_part[0][j];
-                for (int w = 1; w < WARPS; ++w) v += s_part[w][j];
-                sums[j] = v;
-            }
             float o[track::NOUT];
-            track::epoch_update(st, sums, p, c, o);
+            track::epoch_update(st, acc, p, c, o);
             float* orow = out + (size_t)t * track::NOUT * C + c;
             for (int j = 0; j < track::NOUT; ++j) orow[(size_t)j * C] = o[j];
             s_m = track::halfchip_shift(st.f[track::CP]);

@@ -9,10 +9,19 @@ slice at offset M into a doubled 2-sample/chip upsampled code, with
 E/P/L at offsets M-1, M, M+1.  The fractional phase still advances in
 the loop state, so long-term code tracking stays exact.
 
-:func:`epl_correlate_halfchip` is the plain torch version of the JAX
-package's per-epoch kernel K2 (``_epl_kernel_real``); the hand-written
-Hopper kernel for it is still to come (ROADMAP Queue 2).  The tracking
-scan kernel (ops.track_scan) computes the same sums inside its loop.
+The JAX package's per-epoch kernel K2 (``_epl_kernel_real``) has three
+counterparts here, and :func:`epl_correlate` picks by device:
+
+* :func:`epl_correlate_cuda`, the hand-written Hopper kernel
+  (``csrc/epl.cu``), for tensors on a CUDA device;
+* :func:`epl_correlate_halfchip`, its plain torch version, for tensors on
+  the CPU;
+* :func:`epl_correlate_host`, the kernel's arithmetic built for the host
+  with g++, which the CPU tests hold against the plain version.
+
+There is no fallback from one to the other: a CUDA tensor launches the
+kernel or raises.  The tracking-scan kernel (ops.track_scan) computes the
+same sums inside its loop, from the same source (``csrc/track_epoch.cuh``).
 """
 
 from __future__ import annotations
@@ -80,4 +89,97 @@ def epl_correlate_halfchip(
     for lag in range(3):
         rep = win[:, lag:lag + S]
         sums.append(torch.complex((yr * rep).sum(1), (yi * rep).sum(1)))
+    epl_correlate_halfchip.calls += 1
     return torch.stack(sums, dim=1)
+
+
+epl_correlate_halfchip.calls = 0
+
+
+def _check(x, u2, code_phase_chips, doppler_hz, carrier_phase_cycles):
+    """Raise on what the kernel and its host build do not take."""
+    if x.shape != (S,) or x.dtype != torch.complex64:
+        raise ValueError(f"x: want ({S},) complex64, got {tuple(x.shape)} "
+                         f"{x.dtype}")
+    if u2.dim() != 2 or u2.shape[1] != U2P or u2.dtype != torch.float32:
+        raise ValueError(f"u2: want (C, {U2P}) float32, got "
+                         f"{tuple(u2.shape)} {u2.dtype}")
+    c = u2.shape[0]
+    for name, t in (("code_phase_chips", code_phase_chips),
+                    ("doppler_hz", doppler_hz),
+                    ("carrier_phase_cycles", carrier_phase_cycles)):
+        if t.shape != (c,) or t.dtype != torch.float32:
+            raise ValueError(f"{name}: want ({c},) float32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    for name, t in (("x", x), ("u2", u2), ("code_phase_chips",
+                                           code_phase_chips),
+                    ("doppler_hz", doppler_hz),
+                    ("carrier_phase_cycles", carrier_phase_cycles)):
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def epl_correlate_cuda(x, u2, code_phase_chips, doppler_hz,
+                       carrier_phase_cycles, sample_rate_hz):
+    """Launch the per-epoch E/P/L kernel (csrc/epl.cu) on the card: same
+    contract as :func:`epl_correlate_halfchip`.
+    ``epl_correlate_cuda.launches`` counts kernel launches."""
+    from .kernel_lib import epl_lib
+
+    if not x.is_cuda:
+        raise ValueError("epl_correlate_cuda needs CUDA tensors")
+    _check(x, u2, code_phase_chips, doppler_hz, carrier_phase_cycles)
+    c = u2.shape[0]
+    out = torch.empty((c, 3), dtype=torch.complex64, device=x.device)
+    if c == 0:
+        return out
+    lib = epl_lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.epl_launch(
+            x.data_ptr(), u2.data_ptr(), code_phase_chips.data_ptr(),
+            doppler_hz.data_ptr(), carrier_phase_cycles.data_ptr(),
+            out.data_ptr(), c, sample_rate_hz, stream)
+    if rc != 0:
+        raise RuntimeError(f"epl kernel launch failed: CUDA error {rc}")
+    epl_correlate_cuda.launches += 1
+    return out
+
+
+epl_correlate_cuda.launches = 0
+
+
+def epl_correlate_host(x, u2, code_phase_chips, doppler_hz,
+                       carrier_phase_cycles, sample_rate_hz):
+    """The kernel's arithmetic built for the host with g++
+    (csrc/kernels_host.cpp) on CPU tensors, summed in the kernel's order:
+    the check of the CUDA source on a machine without a GPU."""
+    from .kernel_lib import host_lib
+
+    if x.device.type != "cpu":
+        raise ValueError("epl_correlate_host needs CPU tensors")
+    _check(x, u2, code_phase_chips, doppler_hz, carrier_phase_cycles)
+    c = u2.shape[0]
+    out = torch.empty((c, 3), dtype=torch.complex64)
+    rc = host_lib().epl_host(
+        x.data_ptr(), u2.data_ptr(), code_phase_chips.data_ptr(),
+        doppler_hz.data_ptr(), carrier_phase_cycles.data_ptr(),
+        out.data_ptr(), c, sample_rate_hz)
+    if rc != 0:
+        raise RuntimeError("epl_host: half-chip shift out of range")
+    return out
+
+
+def epl_correlate(x, u2, code_phase_chips, doppler_hz, carrier_phase_cycles,
+                  sample_rate_hz):
+    """(C, 3) complex64 half-chip E/P/L of one epoch: the kernel for CUDA
+    tensors, its plain version for CPU tensors."""
+    if x.is_cuda:
+        return epl_correlate_cuda(x, u2, code_phase_chips, doppler_hz,
+                                  carrier_phase_cycles, sample_rate_hz)
+    if x.device.type == "cpu":
+        return epl_correlate_halfchip(x, u2, code_phase_chips, doppler_hz,
+                                      carrier_phase_cycles, sample_rate_hz)
+    raise ValueError(f"no E/P/L correlator for device {x.device}")

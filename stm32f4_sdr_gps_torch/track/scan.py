@@ -15,8 +15,11 @@ bit-sync part of ``nav_data.c:46-138``) with all C channels advanced
 :func:`track_block` is a Python loop over :func:`track_epoch_step` — the
 per-epoch reference scan — unless ``cfg.in_kernel_scan`` resolves to
 True, in which case the whole block runs as the tracking-scan kernel
-(ops.track_scan).  In half-chip mode (``cfg.use_pallas``) this scan is
-the spec that kernel is held to.
+(ops.track_scan).  In half-chip mode (``cfg.use_pallas``) each epoch's
+E/P/L goes through ops.epl.epl_correlate, which launches the per-epoch
+kernel (csrc/epl.cu) for CUDA tensors and runs its plain torch version
+for CPU tensors; that scan is also the spec the tracking-scan kernel is
+held to.
 """
 
 from __future__ import annotations
@@ -32,8 +35,8 @@ from ..config import (
     TrackConfig,
     resolve_in_kernel_scan,
 )
+from ..ops import epl as half_chip
 from ..ops.correlate import epl_correlate
-from ..ops.epl import epl_correlate_halfchip
 from ..ops.replica import sample_replicas
 from ..ops.wipeoff import _f32, carrier_wipeoff, fma
 from .state import TrackOutputs, TrackState
@@ -102,8 +105,8 @@ def track_epoch_step(
 
     if cfg.use_pallas:
         # half-chip E/P/L over the doubled upsampled code (code_table =
-        # ops.epl.upsampled_code_doubled)
-        epl = epl_correlate_halfchip(
+        # ops.epl.upsampled_code_doubled): the kernel on a CUDA device
+        epl = half_chip.epl_correlate(
             x_epoch, code_table, state.code_phase_chips, state.doppler_hz,
             state.carrier_phase_cycles, fs)
         carrier_phase = fma(state.doppler_hz, _f32(s_cnt / fs),

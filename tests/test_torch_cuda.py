@@ -1,4 +1,6 @@
-"""The tracking-scan kernel on the card against its plain torch version.
+"""The hand-written kernels on the card against their plain torch
+versions: the tracking scan (K1), the per-epoch E/P/L correlator (K2) and
+the correlator-bank probe (P5).
 
 Needs an NVIDIA GPU and nvcc; every test skips without a CUDA device.
 Imports only the port, torch and numpy (the machine with the card has no
@@ -7,11 +9,14 @@ JAX), so run it there without the JAX conftest:
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py
 
-Tolerances are those of tests/test_pallas_scan.py:68-117 (kernel vs
-reference scan in the JAX package).  Here the two sides run the same
-arithmetic and differ only in the order of the 2046-sample float32 sums
-and in sincospif vs cos/sin, so the integer decisions must agree exactly
-on a 48 dBHz signal scenario.
+Tolerances of the tracking loops are those of
+tests/test_pallas_scan.py:68-117 (kernel vs reference scan in the JAX
+package).  Here the two sides run the same arithmetic and differ only in
+the order of the 2046-sample float32 sums and in sincospif vs cos/sin, so
+the integer decisions must agree exactly on a 48 dBHz signal scenario.
+K2's sums: rtol 1e-4 / atol 1e-3 (tests/test_torch_epl.py says why).
+P5's sums: 1e-4 of the largest (float32 sums over T steps of 2048-term
+row sums, in other orders on the two sides).
 """
 
 import numpy as np
@@ -20,8 +25,11 @@ import torch
 
 from stm32f4_sdr_gps_torch.config import (BASEBAND_PLAN, ReceiverConfig,
                                           TrackConfig)
+from stm32f4_sdr_gps_torch.ops import epl
 from stm32f4_sdr_gps_torch.ops import track_scan as ts
 from stm32f4_sdr_gps_torch.ops.epl import upsampled_code_doubled
+from stm32f4_sdr_gps_torch.probes import corr_bank as cb
+from stm32f4_sdr_gps_torch.track.scan import track_block
 from stm32f4_sdr_gps_torch.signal.ca_code import ca_table_bipolar
 from stm32f4_sdr_gps_torch.signal.simulator import SimSat, simulate_capture
 from stm32f4_sdr_gps_torch.track.state import init_state
@@ -177,3 +185,107 @@ def test_receiver_runs_on_kernel(dev):
     for ch in rx.channels:
         assert ch.state_name == "TRACKING"
         assert ch.bit_count > 50, (ch.prn, ch.bit_count)
+
+
+WRAP_EDGES = (0.0, 0.2, 0.49, 0.51, 1022.6, 1022.99)
+
+
+@pytest.mark.parametrize("c", [4, 32, 128])
+@pytest.mark.parametrize("edges", [False, True], ids=["random", "edges"])
+def test_epl_kernel_matches_plain_version(dev, c, edges):
+    rng = np.random.default_rng(c + 7 * edges)
+    x = (rng.standard_normal(epl.S)
+         + 1j * rng.standard_normal(epl.S)).astype(np.complex64)
+    u2 = upsampled_code_doubled(
+        ca_table_bipolar([1 + i % 32 for i in range(c)]))
+    cp = (np.resize(np.array(WRAP_EDGES, np.float32), c) if edges
+          else rng.uniform(0, 1023, c).astype(np.float32))
+    dop = rng.uniform(-5000, 5000, c).astype(np.float32)
+    ph = rng.uniform(0, 1, c).astype(np.float32)
+    args = [torch.as_tensor(a, device=dev) for a in (x, u2, cp, dop, ph)]
+    n0 = epl.epl_correlate_cuda.launches
+    got = epl.epl_correlate(*args, PLAN.sample_rate_hz)
+    torch.cuda.synchronize()
+    assert epl.epl_correlate_cuda.launches == n0 + 1
+    want = epl.epl_correlate_halfchip(*args, PLAN.sample_rate_hz)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-4, atol=1e-3)
+
+
+def test_per_epoch_scan_on_kernel_matches_cpu(dev):
+    """track_block on the per-epoch half-chip path: K2 on the card against
+    the plain version on CPU copies, 90 epochs."""
+    cfg = TrackConfig(codes_in_bit=CIB, use_pallas=True,
+                      in_kernel_scan=False, pll_bad_state_threshold=10**6)
+    ep, sats = _scenario(90)
+    st = init_state(len(PRNS),
+                    np.array([s.code_phase_chips + 0.1 for s in sats]),
+                    np.array([s.doppler_hz + 15.0 for s in sats]))
+    u2 = torch.as_tensor(upsampled_code_doubled(ca_table_bipolar(PRNS)))
+    x = torch.as_tensor(ep)
+    n0 = epl.epl_correlate_cuda.launches
+    p0 = epl.epl_correlate_halfchip.calls
+    st_k, out_k = track_block(type(st)(*(t.to(dev) for t in st)),
+                              x.to(dev), u2.to(dev), PLAN, cfg)
+    torch.cuda.synchronize()
+    assert epl.epl_correlate_cuda.launches == n0 + 90
+    assert epl.epl_correlate_halfchip.calls == p0
+    st_r, out_r = track_block(st, x, u2, PLAN, cfg)
+    ps_k, ps_r = (ts.state_from_track_state(s) for s in (st_k, st_r))
+    np.testing.assert_allclose(out_k.ip.cpu(), out_r.ip, rtol=2e-2, atol=2.0)
+    np.testing.assert_allclose(out_k.qp.cpu(), out_r.qp, rtol=2e-2, atol=2.0)
+    np.testing.assert_allclose(out_k.code_phase_chips.cpu(),
+                               out_r.code_phase_chips, atol=5e-3)
+    np.testing.assert_allclose(out_k.doppler_hz.cpu(), out_r.doppler_hz,
+                               atol=0.5)
+    for f in ("bit_ready", "bit_value", "bit_epoch", "period_sync_ok",
+              "code_wrapped"):
+        np.testing.assert_array_equal(getattr(out_k, f).cpu(),
+                                      getattr(out_r, f), err_msg=f)
+    np.testing.assert_array_equal(ps_k.i32.cpu(), ps_r.i32)
+    np.testing.assert_array_equal(ps_k.win.cpu(), ps_r.win)
+    assert out_r.bit_ready.any(), "scenario never produced a nav bit"
+
+
+def test_receiver_runs_on_epl_kernel(dev):
+    """Receiver.run on the card on the per-epoch half-chip path: every
+    epoch's E/P/L is a K2 launch, the plain version never runs."""
+    from stm32f4_sdr_gps_torch.runtime.receiver import Receiver
+
+    rng = np.random.default_rng(23)
+    sats = [SimSat(prn=p, doppler_hz=d, cn0_dbhz=49.0, codes_in_bit=CIB,
+                   nav_bits=rng.integers(0, 2, 300), delay_ms=dl)
+            for p, d, dl in zip((2, 7, 15, 24), (-2500.0, 800.0, 3100.0,
+                                                 -400.0),
+                                (1.773, 6.402, 3.255, 9.911))]
+    x, _ = simulate_capture(sats, num_epochs=400, seed=23)
+    cfg = ReceiverConfig(prns=(2, 7, 15, 24),
+                         track=TrackConfig(codes_in_bit=CIB,
+                                           pll_bad_state_threshold=10**9,
+                                           use_pallas=True,
+                                           in_kernel_scan=False),
+                         enable_position=False)
+    rx = Receiver(cfg, device=dev)
+    n0 = epl.epl_correlate_cuda.launches
+    p0 = epl.epl_correlate_halfchip.calls
+    k0 = ts.track_scan_cuda.launches
+    report = rx.run(x)
+    assert epl.epl_correlate_cuda.launches - n0 == \
+        report.epochs_processed - cfg.acq.noncoherent_epochs > 0
+    assert epl.epl_correlate_halfchip.calls == p0
+    assert ts.track_scan_cuda.launches == k0
+    for ch in rx.channels:
+        assert ch.state_name == "TRACKING"
+        assert ch.bit_count > 25, (ch.prn, ch.bit_count)
+
+
+@pytest.mark.parametrize("variant", ["fma", "mma"])
+def test_corr_bank_kernel_matches_plain_version(dev, variant):
+    args = cb.device_inputs(dev)[variant]
+    n0 = cb.KERNELS[variant].launches
+    got = cb.KERNELS[variant](*args, 200)
+    torch.cuda.synchronize()
+    assert cb.KERNELS[variant].launches == n0 + 1
+    want = cb.PLAIN[variant](*args, 200).cpu().numpy()
+    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=0,
+                               atol=1e-4 * np.abs(want).max())

@@ -5,6 +5,8 @@
   tests/test_goldens.py;
 * on the tracking-scan kernel's plain version (in_kernel_scan=True), the
   run of tests/test_receiver.py:137-170;
+* on the per-epoch half-chip path (use_pallas=True, in_kernel_scan=False)
+  against the JAX Receiver on the same path, bit for bit;
 * the full-scale cold start to a fix, gated behind RUN_SLOW=1 like
   tests/test_e2e_slow.py.
 """
@@ -114,6 +116,42 @@ def test_receiver_runs_on_kernel_plain_version():
     assert rx.track_state is not rx._scan_carry_ref
 
 
+def test_receiver_half_chip_per_epoch_path_matches_jax():
+    """Receiver.run on the per-epoch half-chip path (use_pallas with the
+    whole-block scan off: one E/P/L correlator call per epoch, the plain
+    version here) against the JAX Receiver on the same path with its
+    Pallas kernel K2 in interpret mode: the same bits, in value and epoch,
+    on every channel.  Final Doppler within 0.05 Hz and code phase within
+    0.05 chip: the two correlators sum in other orders, which the closed
+    loops carry into the last digits of their state."""
+    from stm32f4_sdr_gps_tpu.config import ReceiverConfig as JReceiverConfig
+    from stm32f4_sdr_gps_tpu.config import TrackConfig as JTrackConfig
+    from stm32f4_sdr_gps_tpu.runtime.receiver import Receiver as JReceiver
+    from stm32f4_sdr_gps_torch.ops import epl
+
+    x, _ = _make_capture(700, seed=23)
+    common = dict(codes_in_bit=CIB, pll_bad_state_threshold=10**9,
+                  use_pallas=True, in_kernel_scan=False)
+    j_rx = JReceiver(JReceiverConfig(
+        prns=PRNS, enable_position=False,
+        track=JTrackConfig(pallas_interpret=True, **common)))
+    j_rx.run(x)
+    rx = Receiver(ReceiverConfig(prns=PRNS, enable_position=False,
+                                 track=TrackConfig(**common)))
+    calls = epl.epl_correlate_halfchip.calls
+    report = rx.run(x)
+    tracked = report.epochs_processed - rx.config.acq.noncoherent_epochs
+    assert epl.epl_correlate_halfchip.calls - calls == tracked
+    assert [c.prn for c in rx.channels] == [c.prn for c in j_rx.channels]
+    for ch, jch in zip(rx.channels, j_rx.channels):
+        assert ch.state_name == "TRACKING"
+        assert ch.bit_count > 50, (ch.prn, ch.bit_count)
+        assert ch.bit_count == jch.bit_count, ch.prn
+        assert ch.framer.history == jch.framer.history, ch.prn
+        assert abs(ch.doppler_hz - jch.doppler_hz) < 0.05, ch.prn
+        assert abs(ch.code_phase_chips - jch.code_phase_chips) < 0.05, ch.prn
+
+
 def test_warm_reset_restarts_tracking():
     """Operator warm reset: nav state cleared, re-acquisition hinted with
     the learned Doppler, tracking restarted at the ledger cursor."""
@@ -161,14 +199,16 @@ def test_entry_block_program():
 
 
 @slow
-@pytest.mark.parametrize("in_kernel_scan", [False, True],
-                         ids=["reference_scan", "kernel_plain_version"])
-def test_full_cold_start_to_fix(in_kernel_scan):
+@pytest.mark.parametrize("track", [
+    dict(in_kernel_scan=False), dict(in_kernel_scan=True),
+    dict(use_pallas=True, in_kernel_scan=False)],
+    ids=["reference_scan", "kernel_plain_version", "half_chip_per_epoch"])
+def test_full_cold_start_to_fix(track):
     from stm32f4_sdr_gps_torch.signal.scenarios import fix_scenario
 
     sc = fix_scenario(num_epochs=29_000)
     cfg = ReceiverConfig(prns=sc.prns, track_block_epochs=1000,
-                         track=TrackConfig(in_kernel_scan=in_kernel_scan))
+                         track=TrackConfig(**track))
     report = Receiver(cfg).run(sc.samples)
     for ch in report.channels:
         assert ch.eph.has_full_set, ch.prn
