@@ -6,10 +6,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero
 before the result line):
 
 1. card: the device name and ``nvidia-smi`` name/power-limit line;
-2. build: the three kernel libraries from csrc/ with nvcc, one nvcc each,
+2. build: the four kernel libraries from csrc/ with nvcc, one nvcc each,
    all started together (build seconds and ptxas lines): the tracking
-   scan (K1), the per-epoch E/P/L correlator (K2) and the correlator-bank
-   probe (P5);
+   scan (K1), the per-epoch E/P/L correlator (K2), the correlator-bank
+   probe (P5) and the epoch-cost probes (P6-P8);
 3. K1 vs its plain version on the card: the tracking scan on 32 channels
    (PRNs 1-32 at 48 dBHz, seeded Doppler and code phase, 3 codes per
    bit) over 1000 epochs, and on the main path's 4-channel shape, held to
@@ -40,7 +40,18 @@ before the result line):
    epoch, no plain-version call and no tracking-scan launch;
 8. P5, both variants at C = 32, SP = 2048, N = 128, T = 1600 on the
    probe's inputs, held to their plain versions (1e-4 of the largest
-   sum), then the probe's entry point, which prints ns per step.
+   sum), then the probe's entry point, which prints ns per step;
+9. P6-P8, every variant (11 + 11 + 8) at the check size (C = 32, G = 2,
+   K = 4) on the probe's inputs and on seeded ones, held to its plain
+   version on the card (fused steps, P7 and the sums rtol 1e-5, sincos
+   atol 1e-5 besides; selects, int ops, transposes and the barrel exact)
+   with finite outputs; each variant's kernel and plain-version time per
+   launch there; then the three entry points at full size (C = 32 and 4
+   at G = 128, and C = 32 at G = 64 to show the time scales with G; P7
+   also on finite values, and its barrier variants at C = 256), which
+   print ns per iteration per variant (the device time of launches queued
+   behind a device sleep) and P7's deltas over base, and must launch
+   every kernel.
 
 The second-to-last stdout line is the kernels' JSON record, the last the
 device record.  Imports only this checkout's stm32f4_sdr_gps_torch,
@@ -88,7 +99,8 @@ def build():
 
     libs = {"track_scan_cuda": kernel_lib.cuda_lib,
             "epl_cuda": kernel_lib.epl_lib,
-            "corr_bank_cuda": kernel_lib.corr_bank_lib}
+            "corr_bank_cuda": kernel_lib.corr_bank_lib,
+            "forest_cuda": kernel_lib.forest_lib}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(fn) for fn in libs.values()]:
@@ -112,29 +124,6 @@ def _median_ms(fn, reps, calls):
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return statistics.median(times)
-
-
-def _queued_ms(fn, reps, calls):
-    """Median over ``reps`` of the device time per call of ``calls`` calls
-    of ``fn``, queued behind a ~0.1 s device sleep so the host enqueues
-    them all before the device reaches them: the device time per call,
-    without the host's per-call time even where that is longer.  Keep
-    ``calls`` times the kernels per call under the launch queue's depth
-    (about a thousand)."""
-    import torch
-
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(200_000_000)
         start.record()
         for _ in range(calls):
             fn()
@@ -307,6 +296,9 @@ def _reset_counts():
     epl.epl_correlate_halfchip.calls = 0
     cb.corr_bank_fma_cuda.launches = 0
     cb.corr_bank_mma_cuda.launches = 0
+    for mod, _, _ in _forest_probes():
+        for fn in set(mod.KERNELS.values()):
+            fn.launches = 0
 
 
 def _counts():
@@ -387,6 +379,7 @@ def epl_vs_plain():
 
     from stm32f4_sdr_gps_torch.config import BASEBAND_PLAN
     from stm32f4_sdr_gps_torch.ops import epl
+    from stm32f4_sdr_gps_torch.probes.common import queued_ms
     from stm32f4_sdr_gps_torch.signal.ca_code import ca_table_bipolar
 
     dev = torch.device("cuda")
@@ -431,8 +424,8 @@ def epl_vs_plain():
             return epl.epl_correlate_halfchip(*args, fs)
 
         kernel(), plain()                                    # warm-up
-        k_dev = _queued_ms(kernel, 3, 500)
-        p_dev = _queued_ms(plain, 3, 30)
+        k_dev = queued_ms(kernel, 3, 500)
+        p_dev = queued_ms(plain, 3, 30)
         k_ms = _median_ms(kernel, 3, 1000)
         p_ms = _median_ms(plain, 3, 1000)
         times[c] = {"ms": k_dev, "plain_ms": p_dev, "call_ms": k_ms,
@@ -539,6 +532,118 @@ def corr_bank():
     return res
 
 
+def _forest_probes():
+    """(module, name, the TPU kernel it replaces) of P6, P7 and P8."""
+    from stm32f4_sdr_gps_torch.probes import (forest_chain, forest_constructs,
+                                              forest_layout)
+
+    return ((forest_chain, "forest_chain", "tools/forest_probe.py:97"),
+            (forest_constructs, "forest_constructs",
+             "tools/forest_probe2.py:68"),
+            (forest_layout, "forest_layout", "tools/forest_probe3.py:67"))
+
+
+def forest():
+    """P6-P8: every variant against its plain version at the check size
+    on both input sets, then the entry points at full size (launches
+    counted there)."""
+    import numpy as np
+    import torch
+
+    from stm32f4_sdr_gps_torch.probes.common import queued_ms
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    res = {}
+    for mod, name, replaces in _forest_probes():
+        err, rel, exact, check_ms = 0.0, 0.0, 0, {}
+        for v in mod.VARIANTS:
+            kernel, plain = mod.KERNELS[v], mod.PLAIN[v]
+            rtol, atol = mod.tolerance(v)
+            for which in ("probe", "seeded"):
+                args = mod.check_args(v, which, dev)
+                got, want = kernel(*args), plain(*args)
+                torch.cuda.synchronize()
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                same = True
+                for g, w in zip(got, want):
+                    g = g.cpu().numpy().astype(np.float64)
+                    w = w.cpu().numpy().astype(np.float64)
+                    if (g.shape != w.shape or not np.all(np.isfinite(g))
+                            or not np.all(np.isfinite(w))):
+                        fail(f"{name} {v} ({which} inputs): shapes "
+                             f"{g.shape} / {w.shape} or non-finite output")
+                    diff = np.abs(g - w)
+                    if not np.all(diff <= atol + rtol * np.abs(w)):
+                        fail(f"{name} {v} ({which} inputs): max |kernel - "
+                             f"plain| {diff.max()} beyond rtol {rtol} / "
+                             f"atol {atol}")
+                    err = max(err, float(diff.max()))
+                    rel = max(rel, float((diff / np.maximum(
+                        np.abs(w), 1e-30)).max()))
+                    same = same and bool(np.array_equal(g, w))
+                exact += same
+            args = mod.check_args(v, "probe", dev)
+            check_ms[v] = (queued_ms(lambda: kernel(*args), 5, 20),
+                           _median_ms(lambda: plain(*args), 3, 1))
+        n = 2 * len(mod.VARIANTS)
+        k_ms = sum(k for k, _ in check_ms.values())
+        p_ms = sum(p for _, p in check_ms.values())
+        print(f"[forest] {name}: {len(mod.VARIANTS)} variants x 2 input "
+              f"sets at the check size, {exact} of {n} bit for bit with the "
+              f"plain version; max |kernel - plain| {err:.4g} (relative "
+              f"{rel:.3g}); one launch of every variant {k_ms:.4f} ms (device"
+              f" time, queued), the plain versions {p_ms:.2f} ms (CUDA "
+              f"events)")
+        pairs = {v: (round(k, 4), round(p, 2))
+                 for v, (k, p) in check_ms.items()}
+        print(f"[forest] {name} at the check size, ms per launch, kernel / "
+              f"plain: {pairs}")
+        res[name] = {"replaces": replaces, "max_abs_err": err,
+                     "max_rel_err": rel, "bit_exact": f"{exact}/{n}",
+                     "ms": k_ms, "plain_ms": p_ms, "check_ms": check_ms}
+
+    _reset_counts()
+    full = {}
+    for mod, name, _ in _forest_probes():
+        for c, g in ((32, 128), (32, 64), (4, 128)):
+            if name == "forest_chain":
+                r = mod.run(mod.VARIANTS, c, mod.K, g)
+            elif name == "forest_constructs":
+                # on finite values too (the chains overflow at full size)
+                r = mod.run(mod.VARIANTS, c, g, finite=g == 128)
+            else:
+                r = mod.run(mod.VARIANTS, c, g)
+            full[name, c, g] = r
+        if name == "forest_constructs":
+            for c in (32, 4):
+                res[name][f"delta_ns_{c}ch"] = {
+                    v: t["delta_ns"] for v, t in full[name, c, 128].items()}
+                res[name][f"ns_per_iter_finite_{c}ch"] = {
+                    v: t["ns_per_iter_finite"]
+                    for v, t in full[name, c, 128].items()}
+            # the barrier of a 256-thread block, K1's block size
+            r = mod.run(["base", "when_any", "when_any4"], 256, 128,
+                        finite=False)
+            res[name]["delta_ns_256ch"] = {v: t["delta_ns"]
+                                           for v, t in r.items()}
+    for mod, name, _ in _forest_probes():
+        launches = sum(fn.launches for fn in set(mod.KERNELS.values()))
+        if launches == 0:
+            fail(f"{name}: the entry points launched nothing")
+        ns128, ns64, ns4 = ({v: t["ns_per_iter"] for v, t in r.items()}
+                            for r in (full[name, 32, 128], full[name, 32, 64],
+                                      full[name, 4, 128]))
+        ratio = {v: round(ns64[v] / ns128[v], 3) for v in ns128}
+        print(f"[forest] {name}: ns/iter at G = 64 over G = 128 (1.0: the "
+              f"time scales with G): {ratio}")
+        res[name].update(launches=launches, ns_per_iter=ns128,
+                         ns_per_iter_g64=ns64, ns_per_iter_4ch=ns4)
+    print(f"[forest] phase 9 in {time.perf_counter() - t0:.1f} s")
+    return res
+
+
 def main():
     sys.path.insert(0, HERE)
     import stm32f4_sdr_gps_torch
@@ -563,6 +668,7 @@ def main():
     loop_err = closed_loop(scenario)
     k2_launches = half_chip_path(sc)
     p5 = corr_bank()
+    forest_res = forest()
     src = "stm32f4_sdr_gps_torch/csrc/"
     kernels = {"kernels": [{
         "name": "track_scan",
@@ -595,7 +701,12 @@ def main():
         "ms": p5[v]["ms"],
         "plain_ms": p5[v]["plain_ms"],
         "ns_per_step": p5[v]["ns_per_step"],
-    } for v in ("fma", "mma")]}
+    } for v in ("fma", "mma")] + [{
+        "name": name,
+        "route": "cuda",
+        "source": src + "forest.cu",
+        **r,
+    } for name, r in forest_res.items()]}
     import torch
 
     print(smi)

@@ -12,11 +12,13 @@ One library per kernel source:
 * ``cuda_lib``: the tracking scan (``csrc/track_scan.cu``, kernel K1);
 * ``epl_lib``: the per-epoch E/P/L correlator (``csrc/epl.cu``, K2);
 * ``corr_bank_lib``: the correlator-bank probe (``csrc/corr_bank.cu``,
-  P5).
+  P5);
+* ``forest_lib``: the epoch-cost probes (``csrc/forest.cu``, P6-P8).
 
 The same arithmetic is also built with ``g++`` into a host library
-(``csrc/kernels_host.cpp``) so the CPU tests can check the CUDA sources'
-loop update and correlator on a machine without a GPU.
+(``csrc/kernels_host.cpp``, ``csrc/forest_host.cpp``) so the CPU tests can
+check the CUDA sources' loop update, correlator and probe bodies on a
+machine without a GPU.
 """
 
 from __future__ import annotations
@@ -125,6 +127,12 @@ def _load(name: str, compiler: list, sources: list,
 _TRACK_SCAN_ARGS = [_PTR] * 6 + [_INT, _INT] + [_PTR, _PTR]
 # x, u2, cp, dop, ph, out, C, fs
 _EPL_ARGS = [_PTR] * 6 + [_INT, _FLOAT]
+# x, out, variant, C, K, G
+_CHAIN_ARGS = [_PTR] * 2 + [_INT] * 4
+# x, out, st, sti, variant, C, G
+_CONSTRUCTS_ARGS = [_PTR] * 4 + [_INT] * 3
+# x, w, st, wst, variant, C, G
+_LAYOUT_ARGS = [_PTR] * 4 + [_INT] * 3
 
 
 # cached: the wrapper asks for its library on every launch, and finding
@@ -158,9 +166,24 @@ def corr_bank_lib() -> ctypes.CDLL:
 
 
 @functools.cache
+def forest_lib() -> ctypes.CDLL:
+    """The epoch-cost probes' library (``forest_chain_launch``,
+    ``forest_constructs_launch``, ``forest_layout_launch``)."""
+    return _load("forest_cuda", [_nvcc()] + NVCC_FLAGS, ["forest.cu"],
+                 {"forest_chain_launch": _CHAIN_ARGS + [_PTR],
+                  "forest_constructs_launch": _CONSTRUCTS_ARGS + [_PTR],
+                  "forest_layout_launch": _LAYOUT_ARGS + [_PTR]})
+
+
+@functools.cache
 def host_lib() -> ctypes.CDLL:
     """The host build of the kernels' arithmetic (``track_scan_host``,
-    ``epl_host``), built with g++ at first use."""
-    return _load("kernels_host", ["g++"] + GXX_FLAGS, ["kernels_host.cpp"],
+    ``epl_host``, ``forest_chain_host``, ``forest_constructs_host``,
+    ``forest_layout_host``), built with g++ at first use."""
+    return _load("kernels_host", ["g++"] + GXX_FLAGS,
+                 ["kernels_host.cpp", "forest_host.cpp"],
                  {"track_scan_host": _TRACK_SCAN_ARGS,
-                  "epl_host": _EPL_ARGS})
+                  "epl_host": _EPL_ARGS,
+                  "forest_chain_host": _CHAIN_ARGS,
+                  "forest_constructs_host": _CONSTRUCTS_ARGS,
+                  "forest_layout_host": _LAYOUT_ARGS})

@@ -212,7 +212,9 @@ def _costas_err_poly(ip: torch.Tensor, qp: torch.Tensor) -> torch.Tensor:
     p = p * z2 + 0.9998660
     a = z * p
     a = torch.where(ay > ax, math.pi / 2 - a, a)
-    return torch.sign(y) * a / math.pi
+    # a tensor divisor: torch on CUDA multiplies by the reciprocal of a
+    # scalar one, which is not the kernel's IEEE division
+    return torch.sign(y) * a / torch.full_like(a, math.pi)
 
 
 def track_scan_reference(state: ScanState, epochs: torch.Tensor,

@@ -27,6 +27,8 @@ import sys
 import numpy as np
 import torch
 
+from .common import check_tensor, event_ms, stream
+
 C, SP, N = 32, 2048, 128
 MMA_SLICES = 32        # K slices of the mma kernel (csrc/corr_bank.cu NBLK)
 
@@ -78,20 +80,6 @@ def corr_bank_mma_reference(yr, yi, rep_t, mask, steps: int) -> torch.Tensor:
     return acc
 
 
-def _check(name, t, shape, dtype, device):
-    if tuple(t.shape) != shape or t.dtype != dtype:
-        raise ValueError(f"{name}: want {shape} {dtype}, got "
-                         f"{tuple(t.shape)} {t.dtype}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, yr on {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _stream(device):
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 def corr_bank_fma_cuda(yr, yi, rep, steps: int) -> torch.Tensor:
     """Launch the fma kernel (csrc/corr_bank.cu): yr, yi (C, 2048) and
     rep (3, C, 2048) float32 on the card.  ``launches`` counts them."""
@@ -102,7 +90,7 @@ def corr_bank_fma_cuda(yr, yi, rep, steps: int) -> torch.Tensor:
     c = yr.shape[0]
     for name, t, shape in (("yr", yr, (c, SP)), ("yi", yi, (c, SP)),
                            ("rep", rep, (3, c, SP))):
-        _check(name, t, shape, torch.float32, yr.device)
+        check_tensor(name, t, shape, torch.float32, yr.device)
     out = torch.empty((c, 1), dtype=torch.float32, device=yr.device)
     if c == 0:
         return out
@@ -110,7 +98,7 @@ def corr_bank_fma_cuda(yr, yi, rep, steps: int) -> torch.Tensor:
     with torch.cuda.device(yr.device):
         rc = lib.corr_bank_fma_launch(yr.data_ptr(), yi.data_ptr(),
                                       rep.data_ptr(), out.data_ptr(), c,
-                                      steps, _stream(yr.device))
+                                      steps, stream(yr.device))
     if rc != 0:
         raise RuntimeError(f"corr_bank fma launch failed: CUDA error {rc}")
     corr_bank_fma_cuda.launches += 1
@@ -133,7 +121,7 @@ def corr_bank_mma_cuda(yr, yi, rep_t, mask, steps: int) -> torch.Tensor:
             ("yi", yi, (C, SP), torch.float32),
             ("repT", rep_t, (SP, N), torch.bfloat16),
             ("mask", mask, (C, N), torch.float32)):
-        _check(name, t, shape, dtype, yr.device)
+        check_tensor(name, t, shape, dtype, yr.device)
     if rep_t.data_ptr() % 32:
         raise ValueError("repT must be 32-byte aligned (wmma loads)")
     out = torch.empty((C, 1), dtype=torch.float32, device=yr.device)
@@ -144,7 +132,7 @@ def corr_bank_mma_cuda(yr, yi, rep_t, mask, steps: int) -> torch.Tensor:
         rc = lib.corr_bank_mma_launch(
             yr.data_ptr(), yi.data_ptr(), rep_t.data_ptr(), mask.data_ptr(),
             out.data_ptr(), partial.data_ptr(), C, steps,
-            _stream(yr.device))
+            stream(yr.device))
     if rc != 0:
         raise RuntimeError(f"corr_bank mma launch failed: CUDA error {rc}")
     corr_bank_mma_cuda.launches += 1
@@ -171,17 +159,7 @@ def ns_per_step(variant: str, args: tuple, steps: int, reps: int = 5) -> float:
     """Median over ``reps`` launches of the kernel's CUDA-event time, per
     step, in nanoseconds (after one warm-up launch)."""
     fn = KERNELS[variant]
-    fn(*args, steps)
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn(*args, steps)
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) * 1e6 / steps)
-    return float(np.median(times))
+    return event_ms(lambda: fn(*args, steps), reps) * 1e6 / steps
 
 
 def run(variant: str, steps: int) -> float:

@@ -1,6 +1,6 @@
 """The hand-written kernels on the card against their plain torch
-versions: the tracking scan (K1), the per-epoch E/P/L correlator (K2) and
-the correlator-bank probe (P5).
+versions: the tracking scan (K1), the per-epoch E/P/L correlator (K2), the
+correlator-bank probe (P5) and the epoch-cost probes (P6-P8).
 
 Needs an NVIDIA GPU and nvcc; every test skips without a CUDA device.
 Imports only the port, torch and numpy (the machine with the card has no
@@ -16,7 +16,9 @@ the order of the 2046-sample float32 sums and in sincospif vs cos/sin, so
 the integer decisions must agree exactly on a 48 dBHz signal scenario.
 K2's sums: rtol 1e-4 / atol 1e-3 (tests/test_torch_epl.py says why).
 P5's sums: 1e-4 of the largest (float32 sums over T steps of 2048-term
-row sums, in other orders on the two sides).
+row sums, in other orders on the two sides).  P6-P8: each probe module's
+``tolerance`` (its docstring says why), at the check size on the probe's
+inputs and on seeded ones.
 """
 
 import numpy as np
@@ -29,6 +31,8 @@ from stm32f4_sdr_gps_torch.ops import epl
 from stm32f4_sdr_gps_torch.ops import track_scan as ts
 from stm32f4_sdr_gps_torch.ops.epl import upsampled_code_doubled
 from stm32f4_sdr_gps_torch.probes import corr_bank as cb
+from stm32f4_sdr_gps_torch.probes import (forest_chain, forest_constructs,
+                                          forest_layout)
 from stm32f4_sdr_gps_torch.track.scan import track_block
 from stm32f4_sdr_gps_torch.signal.ca_code import ca_table_bipolar
 from stm32f4_sdr_gps_torch.signal.simulator import SimSat, simulate_capture
@@ -289,3 +293,28 @@ def test_corr_bank_kernel_matches_plain_version(dev, variant):
     want = cb.PLAIN[variant](*args, 200).cpu().numpy()
     np.testing.assert_allclose(got.cpu().numpy(), want, rtol=0,
                                atol=1e-4 * np.abs(want).max())
+
+
+FOREST = {"P6": forest_chain, "P7": forest_constructs, "P8": forest_layout}
+FOREST_CASES = [(probe, v) for probe, mod in FOREST.items()
+                for v in mod.VARIANTS]
+
+
+@pytest.mark.parametrize("which", ["probe", "seeded"])
+@pytest.mark.parametrize("probe,variant", FOREST_CASES,
+                         ids=[f"{p}-{v}" for p, v in FOREST_CASES])
+def test_forest_kernel_matches_plain_version(dev, probe, variant, which):
+    mod = FOREST[probe]
+    args = mod.check_args(variant, which, dev)
+    fn = mod.KERNELS[variant]
+    n0 = fn.launches
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    want = mod.PLAIN[variant](*args)
+    got, want = ((t if isinstance(t, tuple) else (t,)) for t in (got, want))
+    rtol, atol = mod.tolerance(variant)
+    for g, w in zip(got, want):
+        g, w = g.cpu().numpy(), w.cpu().numpy()
+        assert np.all(np.isfinite(g)) and np.all(np.isfinite(w))
+        np.testing.assert_allclose(g, w, rtol=rtol, atol=atol)
