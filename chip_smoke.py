@@ -6,10 +6,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero
 before the result line):
 
 1. card: the device name and ``nvidia-smi`` name/power-limit line;
-2. build: the four kernel libraries from csrc/ with nvcc, one nvcc each,
+2. build: the five kernel libraries from csrc/ with nvcc, one nvcc each,
    all started together (build seconds and ptxas lines): the tracking
    scan (K1), the per-epoch E/P/L correlator (K2), the correlator-bank
-   probe (P5) and the epoch-cost probes (P6-P8);
+   probe (P5), the epoch-cost probes (P6-P8) and the roll probes (P1-P4);
 3. K1 vs its plain version on the card: the tracking scan on 32 channels
    (PRNs 1-32 at 48 dBHz, seeded Doppler and code phase, 3 codes per
    bit) over 1000 epochs, and on the main path's 4-channel shape, held to
@@ -18,11 +18,18 @@ before the result line):
    channel up to its first prompt-sign decision that lies within float32
    summation error of zero, see MARGINAL_IP); a 500 + 500 split must
    equal the full run; median block times from CUDA events (the kernel
-   over 20 back-to-back launches);
+   over 20 back-to-back launches); then K1 in each of its other modes
+   (coherent_bit_vote, coherent_pll, coherent_pll with pll_ext_bits = 5,
+   emit_correlators) on the 32-channel scenario under the same rules, the
+   E/L slots under the I/Q tolerance, with its block time in each, and
+   coherent_bit_vote also at the main path's 4 channels (phase 4b's
+   instantiation at its shape);
 4. K1 main path: ``Receiver.run`` on the card from cold start to a
    position fix on a 29 s, 4-satellite capture with real 20 ms nav bits
    at 48 dBHz; the fix must be within 500 m of the planted position, and
    every tracking block must have gone through the kernel;
+4b. the same with ``TrackConfig(coherent_bit_vote=True)``: grid-locked
+   bit sync and the coherent bit decision, through K1;
 5. K2 vs its plain version on the card, one epoch: 4, 32 and 128
    channels at random phases and at the code-phase wrap edges of
    tests/test_pallas.py:57, rtol 1e-4 / atol 1e-3 on the sums (summation
@@ -51,9 +58,21 @@ before the result line):
    also on finite values, and its barrier variants at C = 256), which
    print ns per iteration per variant (the device time of launches queued
    behind a device sleep) and P7's deltas over base, and must launch
-   every kernel.
+   every kernel;
+10. P1-P4, every case (P1 at 4352 and 2176 lanes, both signs; P2; P3;
+   P4 both signs) at 8, 32 and 128 rows on the tools' inputs and on
+   seeded ones, held to its plain version bit for bit; the device time
+   per launch (queued) beside the plain version's and that of the one
+   torch.gather that computes the same (the yardstick); then the two
+   entry points, roll_wide and mosaic_bisect, each with every stage.
+   The kernels line has one record per kernel wrapper (P1's four cases
+   share dyn_roll_cuda, P4's two roll_cuda), each case's numbers inside.
 
-The second-to-last stdout line is the kernels' JSON record, the last the
+Every kernel's record carries its bound: the larger of the bytes it must
+move over 3.35 TB/s and its operations over the peak rate of their type
+(67 TFLOP/s float32, 989 TFLOP/s bf16 on the tensor cores), the H100 SXM
+data sheet's figures at 700 W, from this run's shapes.  The
+second-to-last stdout line is the kernels' JSON record, the last the
 device record.  Imports only this checkout's stm32f4_sdr_gps_torch,
 torch and numpy.
 """
@@ -100,7 +119,8 @@ def build():
     libs = {"track_scan_cuda": kernel_lib.cuda_lib,
             "epl_cuda": kernel_lib.epl_lib,
             "corr_bank_cuda": kernel_lib.corr_bank_lib,
-            "forest_cuda": kernel_lib.forest_lib}
+            "forest_cuda": kernel_lib.forest_lib,
+            "roll_cuda": kernel_lib.roll_lib}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(fn) for fn in libs.values()]:
@@ -112,6 +132,46 @@ def build():
         print(f"[build] {name} built in {info['seconds']:.2f} s")
         for line in info["log"].splitlines():
             print(f"[build]   {line}")
+
+
+# The H100 SXM data sheet's peaks at 700 W (dense, without sparsity)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32 = 67e12
+PEAK_BF16 = 989e12
+# K1's float32 operations per sample and channel: the carrier angle (a
+# multiply, an add, the floor and its subtraction, the doubling: 5),
+# sincospif counted as 2, the rotation (4 multiplies, 2 adds) and the six
+# multiply-adds (12)
+K1_OPS_PER_SAMPLE = 25
+
+
+def bound(nbytes, ops=0.0, peak=PEAK_FP32):
+    """(bound_ms, bound_by): the least time for the work, the larger of
+    the bytes over the memory rate and the operations over the peak
+    rate of their type."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def k1_bound(t_cnt, c, nout=11, win=4):
+    """K1's bound for one block: the epochs, the code rows and the state
+    read once, the outputs and the state written once; 25 float32
+    operations per sample and channel."""
+    state = (16 + 14 + win) * c * 4
+    nbytes = t_cnt * 2046 * 8 + c * 4352 * 4 + 2 * state + t_cnt * nout * c * 4
+    return bound(nbytes, t_cnt * c * 2046 * K1_OPS_PER_SAMPLE)
+
+
+def k2_bound(c):
+    """K2's bound for one epoch: the epoch, the code rows, three state
+    rows in, (C, 3) complex64 out."""
+    return bound(2046 * 8 + c * 4352 * 4 + 3 * c * 4 + c * 3 * 8,
+                 c * 2046 * K1_OPS_PER_SAMPLE)
 
 
 def _median_ms(fn, reps, calls):
@@ -140,13 +200,17 @@ def _median_ms(fn, reps, calls):
 MARGINAL_IP = 0.5
 
 
-def _compare(st_k, out_k, st_r, out_r, label):
+def _compare(st_k, out_k, st_r, out_r, label, coherent=False):
     """Kernel (k) vs plain version (r) on one run of a tracking loop: the
     tolerances of tests/test_pallas_scan.py:68-117 on the floats and exact
     integer decisions, for every channel up to its first marginal
     prompt-sign decision (see MARGINAL_IP); a channel without one must
     also end in the same integer state, and at most one channel in eight
-    (at least one) may have such a decision.  ``st_*`` are final
+    (at least one) may have such a decision.  With ``coherent`` (the
+    coherent bit decision of coherent_bit_vote and coherent_pll) a
+    bit_value slot whose running prompt-I sum, over the n epochs since the
+    last bit boundary, lies within n * MARGINAL_IP of zero is such a
+    decision too; the run must start at epoch 0.  ``st_*`` are final
     ScanStates (i32 planes and watchdog window), ``out_*`` TrackOutputs
     with (T, C) leaves.  Returns the max |kernel - plain| over the
     compared outputs (ip and qp dominate: correlator units, the
@@ -159,6 +223,21 @@ def _compare(st_k, out_k, st_r, out_r, label):
     marginal = (((k["ip"] > 0) != (r["ip"] > 0))
                 & (np.minimum(np.abs(k["ip"]), np.abs(r["ip"]))
                    < MARGINAL_IP))
+    bit_sums = {}
+    if coherent:
+        # every epoch's bit_value slot is the sign of the running prompt-I
+        # sum of the synced epochs since the last bit boundary (the last
+        # epoch with bit_ready before it), ready or not
+        ready = r["bit_ready"] > 0
+        for t, c in zip(*np.nonzero(r["bit_value"] != k["bit_value"])):
+            prev = np.nonzero(ready[:t, c])[0]
+            be = int(prev[-1]) if prev.size else 0
+            ks, rs = (float(np.where(o["period_sync_ok"][be:t, c] > 0,
+                                     o["ip"][be:t, c], 0.0).sum())
+                      for o in (k, r))
+            if min(abs(ks), abs(rs)) < MARGINAL_IP * max(t - be, 1):
+                marginal[t, c] = True
+                bit_sums.setdefault(int(c), (int(t), ks, rs))
     stop = np.where(marginal.any(0), marginal.argmax(0), t_cnt)
     valid = np.arange(t_cnt)[:, None] < stop[None, :]          # (T, C)
     if (stop < t_cnt).sum() > max(1, c_cnt // 8):
@@ -179,6 +258,9 @@ def _compare(st_k, out_k, st_r, out_r, label):
 
     check("ip", 2e-2, 2.0)
     check("qp", 2e-2, 2.0)
+    if r["ie"].size:
+        for name in ("ie", "qe", "il", "ql"):
+            check(name, 2e-2, 2.0)
     check("code_phase_chips", 0.0, 5e-3)
     check("doppler_hz", 0.0, 0.5)
     check("snr_db", 0.0, 0.1)
@@ -197,54 +279,37 @@ def _compare(st_k, out_k, st_r, out_r, label):
     print(f"[compare] {label}: {bits} bits, integer decisions equal; "
           f"channels with a marginal sign decision (compared up to it): "
           f"{ {int(c): int(stop[c]) for c in np.nonzero(~whole)[0]} }; "
-          f"max |kernel - plain| {errs}")
+          + (f"coherent bit sums there (epoch, kernel, plain) {bit_sums}; "
+             if bit_sums else "")
+          + f"max |kernel - plain| {errs}")
     return max(errs.values())
 
 
-def _compare_scan(ps_k, out_k, ps_r, out_r, label):
+def _compare_scan(ps_k, out_k, ps_r, out_r, label, coherent=False):
     """_compare on two runs of the tracking-scan kernel's slot streams."""
     from stm32f4_sdr_gps_torch.ops.track_scan import outputs_from_raw
 
     return _compare(ps_k, outputs_from_raw(out_k), ps_r,
-                    outputs_from_raw(out_r), label)
+                    outputs_from_raw(out_r), label, coherent)
 
 
 def kernel_vs_plain():
     """K1 against its plain version; returns the max error, the block
     times and the 32-channel scenario (state, epochs, codes) on the
     card."""
-    import numpy as np
     import torch
 
     from stm32f4_sdr_gps_torch.config import BASEBAND_PLAN, TrackConfig
     from stm32f4_sdr_gps_torch.ops import track_scan as ts
-    from stm32f4_sdr_gps_torch.ops.epl import upsampled_code_doubled
-    from stm32f4_sdr_gps_torch.signal.ca_code import ca_table_bipolar
-    from stm32f4_sdr_gps_torch.signal.simulator import (SimSat,
-                                                        simulate_capture)
-    from stm32f4_sdr_gps_torch.track.state import init_state
+    from stm32f4_sdr_gps_torch.probes.scan_time import CIB, k1_scenario
 
-    dev = torch.device("cuda")
-    plan, cib, n_ep = BASEBAND_PLAN, 3, 1000
-    prns = list(range(1, 33))
-    rng = np.random.default_rng(7)
-    sats = [SimSat(prn=p, doppler_hz=float(rng.uniform(-4000, 4000)),
-                   code_phase_chips=float(rng.uniform(0, 1023)),
-                   cn0_dbhz=48.0, codes_in_bit=cib,
-                   nav_bits=rng.integers(0, 2, 400)) for p in prns]
+    plan, cib = BASEBAND_PLAN, CIB
     t0 = time.perf_counter()
-    x_np, _ = simulate_capture(sats, num_epochs=n_ep, seed=7)
-    print(f"[kernel] simulated 32 satellites x {n_ep} epochs in "
+    st, x, u2 = k1_scenario(torch.device("cuda"))
+    n_ep = x.shape[0]
+    print(f"[kernel] simulated {u2.shape[0]} satellites x {n_ep} epochs in "
           f"{time.perf_counter() - t0:.1f} s")
-    x = torch.as_tensor(x_np.reshape(n_ep, plan.samples_per_epoch),
-                        device=dev)
-    u2 = torch.as_tensor(upsampled_code_doubled(ca_table_bipolar(prns)),
-                         device=dev)
     cfg = TrackConfig(codes_in_bit=cib)
-    st = init_state(len(prns),
-                    np.array([s.code_phase_chips + 0.1 for s in sats]),
-                    np.array([s.doppler_hz + 15.0 for s in sats]),
-                    device=dev)
     ps0 = ts.state_from_track_state(st)
 
     ps_k, out_k = ts.track_scan_cuda(ps0, x, u2, plan, cfg)
@@ -268,6 +333,14 @@ def kernel_vs_plain():
     ps_r4, out_r4 = ts.track_scan_reference(sub, x, u2_4, plan, cfg)
     torch.cuda.synchronize()
     err4 = _compare_scan(ps_k4, out_k4, ps_r4, out_r4, "K1 4 ch x 1000 epochs")
+    # the coherent_bit_vote instantiation at the main path's shape (phase 4b)
+    cbv = TrackConfig(codes_in_bit=cib, **K1_MODES["coherent_bit_vote"])
+    ps_k4, out_k4 = ts.track_scan_cuda(sub, x, u2_4, plan, cbv)
+    ps_r4, out_r4 = ts.track_scan_reference(sub, x, u2_4, plan, cbv)
+    torch.cuda.synchronize()
+    err4 = max(err4, _compare_scan(ps_k4, out_k4, ps_r4, out_r4,
+                                   "K1 coherent_bit_vote 4 ch x 1000 epochs",
+                                   coherent=True))
 
     times = {}
     for label, state, table in (("32ch", ps0, u2), ("4ch", sub, u2_4)):
@@ -280,7 +353,35 @@ def kernel_vs_plain():
         print(f"[kernel] {label} x 1000 epochs: kernel median {k_ms:.4f} ms"
               f", plain version median {p_ms:.2f} ms per block "
               f"(CUDA events)")
-    return max(err32, err4), times, (st, x, u2)
+    modes = {}
+    for mode, change in K1_MODES.items():
+        mcfg = TrackConfig(codes_in_bit=cib, **change)
+        ps_k, out_k = ts.track_scan_cuda(ps0, x, u2, plan, mcfg)
+        ps_r, out_r = ts.track_scan_reference(ps0, x, u2, plan, mcfg)
+        torch.cuda.synchronize()
+        if out_k.shape[1] != (15 if mcfg.emit_correlators else 11):
+            fail(f"K1 {mode}: {out_k.shape[1]} output slots")
+        err = _compare_scan(ps_k, out_k, ps_r, out_r,
+                            f"K1 {mode} 32 ch x {n_ep} epochs",
+                            coherent=mode != "emit_correlators")
+        k_ms = _median_ms(lambda: ts.track_scan_cuda(ps0, x, u2, plan, mcfg),
+                          3, 10)
+        synced = int((ps_r.i32[4] == 1).sum())
+        print(f"[kernel] {mode}: kernel median {k_ms:.4f} ms per block at "
+              f"32 ch; {synced} of 32 channels synced at the end, K-bit "
+              f"count {ps_r.i32[13].tolist()}")
+        modes[mode] = {"max_abs_err": err, "ms_32ch": k_ms}
+    return max(err32, err4), times, (st, x, u2), modes
+
+
+# K1's modes beyond the default loop (pallas_track_scan.py :613-622,
+# :660-712, :738-745, :774-775, :791-794, :834-835)
+K1_MODES = {
+    "coherent_bit_vote": dict(coherent_bit_vote=True),
+    "coherent_pll": dict(coherent_pll=True),
+    "coherent_pll_ext5": dict(coherent_pll=True, pll_ext_bits=5),
+    "emit_correlators": dict(emit_correlators=True),
+}
 
 
 def _reset_counts():
@@ -290,6 +391,9 @@ def _reset_counts():
     from stm32f4_sdr_gps_torch.ops import track_scan as ts
     from stm32f4_sdr_gps_torch.probes import corr_bank as cb
 
+    for mod, _, _ in _roll_probes():
+        for fn in set(mod.KERNELS.values()):
+            fn.launches = 0
     ts.track_scan_cuda.launches = 0
     ts.track_scan_reference.calls = 0
     epl.epl_correlate_cuda.launches = 0
@@ -322,7 +426,9 @@ def _run_receiver(sc, track, label):
     from stm32f4_sdr_gps_torch.runtime.receiver import Receiver
 
     cfg = ReceiverConfig(prns=sc.prns, track=track, track_block_epochs=1000)
-    rx = Receiver(cfg, device="cuda")
+    rx = Receiver(cfg)                      # the card, by default
+    if rx.device.type != "cuda":
+        fail(f"{label}: Receiver(cfg) chose {rx.device}, not the card")
     _reset_counts()
     t0 = time.perf_counter()
     report = rx.run(sc.samples)
@@ -355,17 +461,21 @@ def _run_receiver(sc, track, label):
     return report, rx, counts, tracked
 
 
-def main_path(sc):
-    """K1's main path: the default TrackConfig on the card."""
+def main_path(sc, label="main", **track):
+    """K1's main path: the TrackConfig (default, or with ``track``) on the
+    card; returns K1's launches and the final fix error (m)."""
+    import numpy as np
+
     from stm32f4_sdr_gps_torch.config import TrackConfig
 
-    _, rx, counts, _ = _run_receiver(sc, TrackConfig(), "main")
+    report, rx, counts, _ = _run_receiver(sc, TrackConfig(**track), label)
     blocks = rx.profiler.stages["track"].calls
     if (counts["track_scan"] < blocks or counts["track_scan_plain"]
             or counts["epl"] or counts["epl_plain"]):
-        fail(f"main path bypassed the tracking-scan kernel: {counts} for "
+        fail(f"{label} path bypassed the tracking-scan kernel: {counts} for "
              f"{blocks} blocks")
-    return counts["track_scan"]
+    err = float(np.linalg.norm(report.solutions[-1].rr - sc.rr_true))
+    return counts["track_scan"], err
 
 
 WRAP_EDGES = (0.0, 0.2, 0.49, 0.51, 1022.6, 1022.99)
@@ -519,6 +629,32 @@ def corr_bank():
               f"{tol:.4g}, |sums| up to {np.abs(w).max():.1f}); kernel "
               f"{k_ms:.4f} ms, plain version {p_ms:.2f} ms per {steps} steps")
         res[variant] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms}
+    # the yardstick: the bank's products for all the steps in one torch
+    # call (the sums over the steps left out), the stacked perturbed
+    # epochs built outside the timed call
+    yr, yi, rep = inputs["fma"]
+    pert = torch.tensor([cb._perturbation(t) for t in range(steps)],
+                        device=yr.device)
+    y_all = torch.cat([yr[None] + pert[:, None, None],
+                       yi[None].expand(steps, -1, -1)]).transpose(0, 1)
+    y_all = y_all.contiguous()                                # (C, 2T, SP)
+    rep_t = rep.permute(1, 2, 0).contiguous()                 # (C, SP, 3)
+    a_all = (yr[None] + pert[:, None, None]).reshape(-1, cb.SP).to(
+        torch.bfloat16)                                       # (T C, SP)
+    library = {"fma": lambda: torch.bmm(y_all, rep_t),
+               "mma": lambda: torch.matmul(a_all, inputs["mma"][2])}
+    for variant in ("fma", "mma"):
+        library[variant]()
+        res[variant]["library_ms"] = _median_ms(library[variant], 3, 1)
+        print(f"[p5] {variant}: the one-call yardstick "
+              f"({'torch.bmm' if variant == 'fma' else 'torch.matmul'} over "
+              f"all {steps} steps) {res[variant]['library_ms']:.4f} ms")
+    del y_all, a_all
+    c, sp, n = cb.C, cb.SP, cb.N
+    res["fma"]["bound"] = bound(_nbytes(*inputs["fma"]) + c * 4,
+                                steps * c * sp * 13)
+    res["mma"]["bound"] = bound(_nbytes(*inputs["mma"]) + c * 4,
+                                steps * 2 * 2 * c * sp * n, PEAK_BF16)
     _reset_counts()
     for variant in ("fma", "mma"):
         res[variant]["ns_per_step"] = cb.run(variant, steps)
@@ -557,6 +693,7 @@ def forest():
     res = {}
     for mod, name, replaces in _forest_probes():
         err, rel, exact, check_ms = 0.0, 0.0, 0, {}
+        t_bytes = t_ops = 0.0
         for v in mod.VARIANTS:
             kernel, plain = mod.KERNELS[v], mod.PLAIN[v]
             rtol, atol = mod.tolerance(v)
@@ -587,6 +724,11 @@ def forest():
             args = mod.check_args(v, "probe", dev)
             check_ms[v] = (queued_ms(lambda: kernel(*args), 5, 20),
                            _median_ms(lambda: plain(*args), 3, 1))
+            outs = kernel(*args)
+            tensors = [a for a in args if isinstance(a, torch.Tensor)]
+            tensors += list(outs if isinstance(outs, tuple) else (outs,))
+            t_bytes += bound(_nbytes(*tensors))[0]
+            t_ops += bound(0, _forest_ops(name, v, args))[0]
         n = 2 * len(mod.VARIANTS)
         k_ms = sum(k for k, _ in check_ms.values())
         p_ms = sum(p for _, p in check_ms.values())
@@ -602,7 +744,10 @@ def forest():
               f"plain: {pairs}")
         res[name] = {"replaces": replaces, "max_abs_err": err,
                      "max_rel_err": rel, "bit_exact": f"{exact}/{n}",
-                     "ms": k_ms, "plain_ms": p_ms, "check_ms": check_ms}
+                     "ms": k_ms, "plain_ms": p_ms,
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "library_ms": None, "check_ms": check_ms}
 
     _reset_counts()
     full = {}
@@ -644,6 +789,119 @@ def forest():
     return res
 
 
+def _forest_ops(name, variant, args):
+    """float32 operations of one P6-P8 launch (a fused multiply-add counts
+    2; P7 counts its two fma pairs per iteration, not the construct; a
+    barrel stage is a copy)."""
+    if name == "forest_chain":
+        x, _, k, g = args
+        pairs = k // 4 if variant.startswith("ilp") else k
+        per_pair = {"fma": 4, "sel": 8, "int": 6}[variant.split("_")[1]]
+        return x.numel() // 2 * pairs * per_pair * g * 8
+    if name == "forest_constructs":
+        x, _, g = args
+        return x.shape[1] * g * 8 * 8
+    x, w, _, g = args
+    c = x.numel() // 8
+    per_iter = {"tr6": 7 * c, "tr2": 3 * c, "wide": 28 * w.numel(),
+                "red": 18 * w.numel(), "roll": c}
+    return per_iter[variant if variant.startswith("tr")
+                    else variant.split("_")[0]] * g * 8
+
+
+def _roll_probes():
+    """(module, its cases, P-numbers) of the roll probes."""
+    from stm32f4_sdr_gps_torch.probes import mosaic_bisect, roll_wide
+
+    return ((roll_wide, roll_wide.CASES, "P1-P3"),
+            (mosaic_bisect, mosaic_bisect.CASES, "P4"))
+
+
+def _roll_nbytes(case, args, outs):
+    """The bytes a P1-P4 case must move: its amounts and outputs, and of
+    its input plane what the kernel reads: row 0 for P2 (statwin), WIN
+    lanes of each u2 row for P3 (the barrel's rebuild), all of it for the
+    row rolls."""
+    from stm32f4_sdr_gps_torch.probes.roll_wide import WIN
+
+    x = args[0]
+    read = {"statwin": x.shape[1], "barrel": x.shape[0] * WIN}.get(
+        case, x.numel()) * x.element_size()
+    return read + _nbytes(*args[1:], *outs)
+
+
+def roll_probes():
+    """P1-P4: every case against its plain version bit for bit at 8, 32
+    and 128 rows on the tools' inputs and on seeded ones; device time per
+    launch (queued) beside the plain version and the one-call gather; then
+    the two entry points (launches counted there, per kernel wrapper).
+    Returns the per-(case, rows) times and bounds, each case's max
+    |kernel - plain| and each wrapper's launches."""
+    import torch
+
+    from stm32f4_sdr_gps_torch.probes import roll_wide
+    from stm32f4_sdr_gps_torch.probes.common import (SLEEP_CYCLES, queued_ms,
+                                                     warm_up)
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    args = roll_wide.check_args("dynu2_pos", "probe", dev, 128)
+    warm_up(lambda: roll_wide.dyn_roll_cuda(*args))
+    res, errs = {}, {}
+    for mod, cases, _ in _roll_probes():
+        for case in cases:
+            kernel, plain = mod.KERNELS[case], mod.PLAIN[case]
+            errs[case] = 0.0
+            for rows in (8, 32, 128):
+                for which in ("probe", "seeded"):
+                    args = mod.check_args(case, which, dev, rows)
+                    got, want = kernel(*args), plain(*args)
+                    lib = roll_wide.library_call(case, args)()
+                    torch.cuda.synchronize()
+                    got, want = ((t if isinstance(t, tuple) else (t,))
+                                 for t in (got, want))
+                    errs[case] = max([errs[case]] + [
+                        float((g.double() - w.double()).abs().max())
+                        for g, w in zip(got, want)])
+                    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                        fail(f"{case} at {rows} rows ({which} inputs): the "
+                             "kernel differs from its plain version")
+                    if not torch.equal(lib, torch.stack(want).reshape(
+                            lib.shape)):
+                        fail(f"{case} at {rows} rows ({which} inputs): the "
+                             "gather yardstick differs from the plain version")
+                args = mod.check_args(case, "probe", dev, rows)
+                out = kernel(*args)
+                lib = roll_wide.library_call(case, args)
+                k_ms = queued_ms(lambda: kernel(*args, out=out), 5, 20,
+                                 SLEEP_CYCLES)
+                l_ms = queued_ms(lib, 5, 20, SLEEP_CYCLES)
+                p_ms = _median_ms(lambda: plain(*args), 3, 1)
+                outs = out if isinstance(out, tuple) else (out,)
+                b_ms, b_by = bound(_roll_nbytes(case, args, outs))
+                res[case, rows] = {"ms": k_ms, "plain_ms": p_ms,
+                                   "library_ms": l_ms, "bound_ms": b_ms,
+                                   "bound_by": b_by}
+                print(f"[roll] {case:10s} {rows:3d} rows x "
+                      f"{args[0].shape[1]} lanes: bit for bit on both input "
+                      f"sets; kernel {k_ms * 1e3:.2f} us per launch (queued), "
+                      f"gather {l_ms * 1e3:.2f} us, plain version "
+                      f"{p_ms:.3f} ms; bound {b_ms * 1e6:.1f} ns ({b_by})")
+    _reset_counts()
+    for mod, _, pn in _roll_probes():
+        name = mod.__name__.rsplit(".", 1)[1]
+        rc = mod.main([name, "all"])
+        if rc != 0:
+            fail(f"{name} ({pn}) exited {rc}")
+    launches = {fn.__name__: fn.launches for mod, _, _ in _roll_probes()
+                for fn in set(mod.KERNELS.values())}
+    if not all(launches.values()):
+        fail(f"the roll entry points left a kernel unlaunched: {launches}")
+    print(f"[roll] phase 10 in {time.perf_counter() - t0:.1f} s; max |kernel"
+          f" - plain| {errs}; launches in the entry points {launches}")
+    return res, errs, launches
+
+
 def main():
     sys.path.insert(0, HERE)
     import stm32f4_sdr_gps_torch
@@ -654,7 +912,7 @@ def main():
              "checkout")
     name, smi = card()
     build()
-    k1_err, k1_times, scenario = kernel_vs_plain()
+    k1_err, k1_times, scenario, k1_modes = kernel_vs_plain()
 
     from stm32f4_sdr_gps_torch.signal.scenarios import fix_scenario
 
@@ -663,13 +921,31 @@ def main():
     print(f"[main] simulated {len(sc.samples) / 2.046e6:.1f} s of "
           f"{len(sc.prns)}-satellite baseband ({sc.samples.nbytes / 1e6:.0f}"
           f" MB) in {time.perf_counter() - t0:.1f} s")
-    k1_launches = main_path(sc)
+    k1_launches, fix_err = main_path(sc)
+    cbv_launches, cbv_err = main_path(sc, "main-cbv", coherent_bit_vote=True)
     k2_err, k2_times = epl_vs_plain()
     loop_err = closed_loop(scenario)
     k2_launches = half_chip_path(sc)
     p5 = corr_bank()
     forest_res = forest()
+    roll_res, roll_errs, roll_launches = roll_probes()
     src = "stm32f4_sdr_gps_torch/csrc/"
+    k1_b4, k1_b32 = k1_bound(1000, 4), k1_bound(1000, 32)
+    k2_b4, k2_b32 = k2_bound(4), k2_bound(32)
+
+    def roll_entry(name, wrapper, cases, replaces):
+        """One kernel wrapper's record: its launches in the entry points,
+        the max error over its cases, the first case's numbers at 8 rows
+        on top and every case's at 8, 32 and 128 rows under ``cases``."""
+        return {
+            "name": name, "route": "cuda", "source": src + "roll.cu",
+            "replaces": replaces, "launches": roll_launches[wrapper],
+            "max_abs_err": max(roll_errs[c] for c in cases),
+            **roll_res[cases[0], 8],
+            "cases": {f"{c}_{rows}rows": roll_res[c, rows]
+                      for c in cases for rows in (8, 32, 128)},
+        }
+
     kernels = {"kernels": [{
         "name": "track_scan",
         "route": "cuda",
@@ -679,8 +955,17 @@ def main():
         "max_abs_err": k1_err,
         "ms": k1_times["4ch"][0],
         "plain_ms": k1_times["4ch"][1],
+        "bound_ms": k1_b4[0],
+        "bound_by": k1_b4[1],
+        "library_ms": None,
         "ms_32ch": k1_times["32ch"][0],
         "plain_ms_32ch": k1_times["32ch"][1],
+        "bound_ms_32ch": k1_b32[0],
+        "bound_by_32ch": k1_b32[1],
+        "fix_error_m": fix_err,
+        "modes": k1_modes,
+        "coherent_bit_vote_path": {"launches": cbv_launches,
+                                   "fix_error_m": cbv_err},
     }, {
         "name": "epl",
         "route": "cuda",
@@ -690,7 +975,11 @@ def main():
         "max_abs_err": k2_err,
         "closed_loop_max_abs_err": loop_err,
         **k2_times[4],
+        "bound_ms": k2_b4[0],
+        "bound_by": k2_b4[1],
+        "library_ms": None,
         **{f"{k}_32ch": v for k, v in k2_times[32].items()},
+        "bound_ms_32ch": k2_b32[0],
     }] + [{
         "name": f"corr_bank_{v}",
         "route": "cuda",
@@ -700,13 +989,26 @@ def main():
         "max_abs_err": p5[v]["max_abs_err"],
         "ms": p5[v]["ms"],
         "plain_ms": p5[v]["plain_ms"],
+        "bound_ms": p5[v]["bound"][0],
+        "bound_by": p5[v]["bound"][1],
+        "library_ms": p5[v]["library_ms"],
         "ns_per_step": p5[v]["ns_per_step"],
     } for v in ("fma", "mma")] + [{
         "name": name,
         "route": "cuda",
         "source": src + "forest.cu",
         **r,
-    } for name, r in forest_res.items()]}
+    } for name, r in forest_res.items()] + [
+        roll_entry("roll_dyn", "dyn_roll_cuda",
+                   ["dynu2_neg", "dynu2_pos", "dynwin_neg", "dynwin_pos"],
+                   "tools/tpu_roll_wide_probe.py:78"),
+        roll_entry("roll_static", "statwin_cuda", ["statwin"],
+                   "tools/tpu_roll_wide_probe.py:115"),
+        roll_entry("barrel", "barrel_cuda", ["barrel"],
+                   "tools/tpu_roll_wide_probe.py:157"),
+        roll_entry("roll_256", "roll_cuda", ["roll_neg", "roll_pos"],
+                   "tools/tpu_mosaic_bisect.py:76"),
+    ]}
     import torch
 
     print(smi)

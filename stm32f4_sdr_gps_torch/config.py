@@ -171,10 +171,9 @@ class TrackConfig:
     bit_sync_max: int = 10
     # Weak-signal coherent modes of the JAX package (grid-locked coherent
     # bit vote, 20 ms coherent PLL, K-bit data-wipeoff PLL; documented in
-    # its config.py).  Not ported yet: the tracking scan raises
-    # NotImplementedError when coherent_bit_vote or coherent_pll is set or
-    # pll_ext_bits > 1 (ROADMAP Queue 1).  The fields stay so a config
-    # reads the same in both packages.
+    # its config.py).  Both tracking scans and the tracking-scan kernel run
+    # all of them; the Receiver refuses coherent_pll, whose fine-Doppler
+    # handoff and aided bit sync are not ported yet (ROADMAP Queue 1).
     coherent_bit_vote: bool = False
     coherent_pll: bool = False
     pll_bit_c1: float = 5.4
@@ -267,8 +266,8 @@ class ReceiverConfig:
     max_resid_rms_m: float = 5000.0
     # Aided bit sync of the coherent weak-signal chain (JAX package:
     # track.aided_sync and the Receiver's _aided_sync_* logic).  Only read
-    # when TrackConfig.coherent_pll is set, which the port does not run
-    # yet (ROADMAP Queue 1).
+    # when TrackConfig.coherent_pll is set, which the port's Receiver does
+    # not run yet (ROADMAP Queue 1).
     aided_sync_window_ms: int = 4000
     aided_sync_min_sigma: float = 5.0
     aided_sync_unhealthy_sigma: float = 3.0

@@ -56,28 +56,31 @@ extern "C" int track_scan_host(const void* x, const void* u2, void* f32s,
     const float* xf = static_cast<const float*>(x);
     const float* uf = static_cast<const float*>(u2);
     float* of = static_cast<float*>(out);
-    for (int c = 0; c < C; ++c) {
-        track::ChanState st;
-        track::load_state(st, static_cast<float*>(f32s),
-                          static_cast<int*>(i32s), static_cast<int*>(wins),
-                          c, C, p);
-        const float* row = uf + (size_t)c * track::U2P;
-        for (int t = 0; t < T; ++t) {
-            const int m = track::halfchip_shift(st.f[track::CP]);
-            if (m < 1 || m > track::S) return 1;
-            float sums[6];
-            block_sums(xf + (size_t)t * track::S * 2, row + (m - 1),
-                       st.f[track::PH], st.f[track::DOP] / p.fs, sums);
-            float o[track::NOUT];
-            track::epoch_update(st, sums, p, c, o);
-            for (int j = 0; j < track::NOUT; ++j)
-                of[((size_t)t * track::NOUT + j) * C + c] = o[j];
+    return track::dispatch_mode(static_cast<const int*>(ip), [&](auto mode) {
+        using M = decltype(mode);
+        for (int c = 0; c < C; ++c) {
+            track::ChanState st;
+            track::load_state(st, static_cast<float*>(f32s),
+                              static_cast<int*>(i32s),
+                              static_cast<int*>(wins), c, C, p);
+            const float* row = uf + (size_t)c * track::U2P;
+            for (int t = 0; t < T; ++t) {
+                const int m = track::halfchip_shift(st.f[track::CP]);
+                if (m < 1 || m > track::S) return 1;
+                float sums[6];
+                block_sums(xf + (size_t)t * track::S * 2, row + (m - 1),
+                           st.f[track::PH], st.f[track::DOP] / p.fs, sums);
+                float o[M::nout];
+                track::epoch_update<M>(st, sums, p, c, o);
+                for (int j = 0; j < M::nout; ++j)
+                    of[((size_t)t * M::nout + j) * C + c] = o[j];
+            }
+            track::store_state(st, static_cast<float*>(f32s),
+                               static_cast<int*>(i32s),
+                               static_cast<int*>(wins), c, C, p);
         }
-        track::store_state(st, static_cast<float*>(f32s),
-                           static_cast<int*>(i32s), static_cast<int*>(wins),
-                           c, C, p);
-    }
-    return 0;
+        return 0;
+    });
 }
 
 // Same arguments as epl_launch, host pointers and no stream.  Returns 1

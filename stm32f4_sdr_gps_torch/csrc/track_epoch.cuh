@@ -11,9 +11,18 @@
 // One call of epoch_update is one 1 ms loop closure of one channel: DLL,
 // polynomial Costas PLL, FLL, false-lock watchdog with its integer LCG
 // kick, SNR window latch, bit sync with majority vote, and the carried
-// epoch remainders.  It mirrors the default (non-coherent) path of the JAX
-// package's Pallas kernel, stm32f4_sdr_gps_tpu/ops/pallas_track_scan.py
-// lines 624-821.
+// epoch remainders.  It mirrors the whole loop update of the JAX package's
+// Pallas kernel, stm32f4_sdr_gps_tpu/ops/pallas_track_scan.py lines
+// 610-836, in each of its modes: the 20 ms coherent PLL (coherent_pll, and
+// its K-bit sign-decided accumulator when pll_ext_bits > 1) with the
+// watchdog held while synced, the grid-locked coherent bit decision
+// (coherent_bit_vote or coherent_pll), and the E/L output slots 11-14
+// (emit_correlators).  The mode is a template parameter (Mode), as K1's is
+// a trace-time constant: each mode compiles into a kernel of its own, so
+// the default loop carries none of the other modes' code (as run-time
+// flags they cost the default loop ~7 % per epoch on the H100, PERF.md).
+// The Params flags say which instantiation a launch takes
+// (dispatch_mode).
 //
 // Floating point: both builds run without fused multiply-add contraction
 // (nvcc -fmad=false, g++ -ffp-contract=off), so every float operation is
@@ -41,10 +50,11 @@ constexpr int U2P = 4352;      // doubled upsampled code row width
 constexpr int CODE_LENGTH = 1023;
 constexpr int NF32 = 16;
 constexpr int NI32 = 14;
-constexpr int NOUT = 11;
+constexpr int NOUT = 11;       // output slots per epoch and channel
+constexpr int NOUT_EL = 15;    // ... with the E/L slots (emit_correlators)
 constexpr int MAX_WIN = 32;    // largest watchdog window the kernel takes
-constexpr int NFP = 16;        // float parameters (kernel_params order)
-constexpr int NIP = 6;         // int parameters
+constexpr int NFP = 22;        // float parameters (kernel_params order)
+constexpr int NIP = 10;        // int parameters
 
 // f32 state rows (ops/track_scan.py _F32_FIELDS)
 enum F32Field {
@@ -68,12 +78,53 @@ struct Params {
     float pll_wide_c1, pll_wide_c2, pll_narrow_c1, pll_narrow_c2;
     float dt, pll_scale;
     float fll_c1_dt, fll_c2_dt, fll_scale;
+    // whole-bit Costas gains: c2 times the bit (cib * dt) or the K-bit
+    // span (pll_ext_bits * cib * dt)
+    float pll_bit_c1, pll_bit_c2_dt, pll_bit_scale;
+    float pll_ext_c1, pll_ext_c2_dt, pll_ext_scale;
     int cib;             // codes in bit
     int win;             // watchdog window (pll_check_window)
     int snr_window;
     int bad_threshold;   // pll_bad_state_threshold
     int sync_up, sync_down;
+    int ext_bits;        // pll_ext_bits
 };
+
+// The tracking mode, fixed at compile time.  PLL: the Costas loop closes
+// every epoch (PLL_EPOCH), once per completed bit (PLL_BIT, coherent_pll)
+// or once per ext_bits sign-decided bits (PLL_EXT, coherent_pll with
+// pll_ext_bits > 1).  GRID: grid-locked bit sync and the coherent bit
+// decision (coherent_bit_vote or coherent_pll).  EMIT: the E/L slots.
+enum { PLL_EPOCH = 0, PLL_BIT = 1, PLL_EXT = 2 };
+
+template <int PLL, bool GRID, bool EMIT>
+struct Mode {
+    static constexpr int pll = PLL;
+    static constexpr bool grid_locked = GRID;
+    static constexpr bool emit = EMIT;
+    static constexpr int nout = EMIT ? NOUT_EL : NOUT;
+};
+
+template <bool EMIT, class F>
+inline int dispatch_pll(int pll, bool grid, F&& f) {
+    if (pll == PLL_EXT) return f(Mode<PLL_EXT, true, EMIT>{});
+    if (pll == PLL_BIT) return f(Mode<PLL_BIT, true, EMIT>{});
+    if (grid) return f(Mode<PLL_EPOCH, true, EMIT>{});
+    return f(Mode<PLL_EPOCH, false, EMIT>{});
+}
+
+// Call f(Mode<...>{}) for the mode the int parameter array asks for:
+// ip[6] coherent_pll, ip[7] coherent_bit_vote, ip[8] pll_ext_bits, ip[9]
+// the output slots (NOUT, or NOUT_EL with the E/L slots).  Host code: the
+// launcher and the host build choose the instantiation; the device sees
+// the mode only as the template parameter.
+template <class F>
+inline int dispatch_mode(const int* ip, F&& f) {
+    const int pll = !ip[6] ? PLL_EPOCH : (ip[8] > 1 ? PLL_EXT : PLL_BIT);
+    const bool grid = ip[6] || ip[7];
+    return ip[9] == NOUT_EL ? dispatch_pll<true>(pll, grid, f)
+                            : dispatch_pll<false>(pll, grid, f);
+}
 
 __host__ __device__ inline Params params_from_arrays(const float* fp,
                                                      const int* ip) {
@@ -94,12 +145,19 @@ __host__ __device__ inline Params params_from_arrays(const float* fp,
     p.fll_c1_dt = fp[13];
     p.fll_c2_dt = fp[14];
     p.fll_scale = fp[15];
+    p.pll_bit_c1 = fp[16];
+    p.pll_bit_c2_dt = fp[17];
+    p.pll_bit_scale = fp[18];
+    p.pll_ext_c1 = fp[19];
+    p.pll_ext_c2_dt = fp[20];
+    p.pll_ext_scale = fp[21];
     p.cib = ip[0];
     p.win = ip[1];
     p.snr_window = ip[2];
     p.bad_threshold = ip[3];
     p.sync_up = ip[4];
     p.sync_down = ip[5];
+    p.ext_bits = ip[8];
     return p;
 }
 
@@ -238,11 +296,13 @@ __host__ __device__ inline float lcg_uniform(int seed) {
     return (float)(s >> 8) * (1.0f / 16777216.0f);
 }
 
-// One epoch of one channel.  sums = (ie, qe, ip, qp, il, ql) with the
-// carrier already rotated off; writes the 11 output slots of the epoch.
+// One epoch of one channel in mode M.  sums = (ie, qe, ip, qp, il, ql)
+// with the carrier already rotated off; writes the M::nout output slots of
+// the epoch.
+template <class M>
 __host__ __device__ inline void epoch_update(ChanState& s, const float sums[6],
                                              const Params& p, int chan,
-                                             float out[NOUT]) {
+                                             float out[M::nout]) {
     const float ie = sums[0], qe = sums[1], ip = sums[2], qp = sums[3];
     const float il = sums[4], ql = sums[5];
     float* f = s.f;
@@ -277,27 +337,76 @@ __host__ __device__ inline void epoch_update(ChanState& s, const float sums[6],
     const float perr = costas_err(ip, qp);
     const float c1 = in_sync ? p.pll_narrow_c1 : p.pll_wide_c1;
     const float c2 = in_sync ? p.pll_narrow_c2 : p.pll_wide_c2;
-    const float pll_delta =
+    float pll_delta =
         (c1 * wrap_half(perr - pll_prev) + c2 * p.dt * perr) * p.pll_scale;
 
     // FLL (tracking.c:214-256)
     const float fdiff = wrap_half(perr - f[FLL_THETA]);
     const float odiff = wrap_half(fdiff - f[FLL_ERR]);
-    const float fll_delta =
+    float fll_delta =
         (i[FLL_PRIMED] == 1 && !edge)
             ? (p.fll_c1_dt * odiff + p.fll_c2_dt * fdiff) * p.fll_scale
             : 0.0f;
+
+    // 20 ms coherent PLL: once synced, the Costas loop closes only at each
+    // completed bit, on the bit's coherent prompt sums (or, with
+    // ext_bits > 1, on the sum of ext_bits sign-decided bit vectors), and
+    // the per-epoch PLL and FLL stand still.  The K-bit accumulator planes
+    // are read and written only in the PLL_EXT mode: the state lives in
+    // local memory, and the other modes leave the planes as they are.
+    float phase_err_store = perr;
+    if constexpr (M::pll != PLL_EPOCH) {
+        const float bip = f[BIT_IP], bqp = f[BIT_QP];
+        const bool bit_done = in_sync && rem < i[OLD_REM];
+        if constexpr (M::pll == PLL_EXT) {
+            const float d = bip >= 0.0f ? 1.0f : -1.0f;
+            float ext_ip2 = f[EXT_IP] + (bit_done ? d * bip : 0.0f);
+            float ext_qp2 = f[EXT_QP] + (bit_done ? d * bqp : 0.0f);
+            int ext_cnt2 = i[EXT_CNT] + (bit_done ? 1 : 0);
+            const bool ext_done = bit_done && ext_cnt2 >= p.ext_bits;
+            const float perr_ext = costas_err(ext_ip2, ext_qp2);
+            const float delta_ext =
+                (p.pll_ext_c1 * wrap_half(perr_ext - pll_prev) +
+                 p.pll_ext_c2_dt * perr_ext) * p.pll_ext_scale;
+            if (in_sync) {
+                pll_delta = ext_done ? delta_ext : 0.0f;
+                phase_err_store = ext_done ? perr_ext : pll_prev;
+            }
+            if (ext_done || !in_sync) {
+                ext_ip2 = 0.0f;
+                ext_qp2 = 0.0f;
+                ext_cnt2 = 0;
+            }
+            f[EXT_IP] = ext_ip2;
+            f[EXT_QP] = ext_qp2;
+            i[EXT_CNT] = ext_cnt2;
+        } else {
+            const float perr_bit = costas_err(bip, bqp);
+            const float delta_bit =
+                (p.pll_bit_c1 * wrap_half(perr_bit - pll_prev) +
+                 p.pll_bit_c2_dt * perr_bit) * p.pll_bit_scale;
+            if (in_sync) {
+                pll_delta = bit_done ? delta_bit : 0.0f;
+                phase_err_store = bit_done ? perr_bit : pll_prev;
+            }
+        }
+        if (in_sync) fll_delta = 0.0f;
+    }
     float new_dop = dop + pll_delta + fll_delta;
     float new_ph = fmaf(dop, p.s_over_fs, ph);
     new_ph = new_ph - floorf(new_ph);
 
     // false-lock watchdog (tracking.c:261-327): sign transitions of the
-    // window after this epoch's sign shifts in
+    // window after this epoch's sign shifts in; under coherent_pll the
+    // window and its counters stand still while synced
     const int sgn = ip > 0.0f ? 1 : -1;
     int trans = sgn != s.win[p.win - 1] ? 1 : 0;
     for (int k = 2; k < p.win; ++k) trans += s.win[k] != s.win[k - 1] ? 1 : 0;
-    for (int k = 0; k < p.win - 1; ++k) s.win[k] = s.win[k + 1];
-    s.win[p.win - 1] = sgn;
+    const bool hold = M::pll != PLL_EPOCH && in_sync;
+    if (!hold) {
+        for (int k = 0; k < p.win - 1; ++k) s.win[k] = s.win[k + 1];
+        s.win[p.win - 1] = sgn;
+    }
     const bool wend = wcnt == p.win - 1;
     int bad2 = i[BAD_CNT];
     if (wend) bad2 = trans > 1 ? (bad2 + 1 < 10 ? bad2 + 1 : 10)
@@ -305,6 +414,10 @@ __host__ __device__ inline void epoch_update(ChanState& s, const float sums[6],
     int master2 = i[MASTER];
     if (wend && bad2 > 9) master2 = master2 + 1;
     else if (wend && bad2 == 0) master2 = 0;
+    if (hold) {
+        bad2 = i[BAD_CNT];
+        master2 = i[MASTER];
+    }
     if (master2 > p.bad_threshold) {
         const float u = lcg_uniform(epoch * 37 + chan);
         new_dop = f[ACQ_DOP] + (u - 0.5f) * 500.0f;
@@ -325,8 +438,10 @@ __host__ __device__ inline void epoch_update(ChanState& s, const float sums[6],
         cnt2 = 0;
     }
 
-    // bit sync (nav_data.c:46-138)
-    const bool flip = sgn != i[PREV_SIGN];
+    // bit sync (nav_data.c:46-138); grid-locked under coherent_bit_vote and
+    // coherent_pll: once synced, flips neither rebase the bit boundary nor
+    // feed the sync counters, and the bit is the sign of its prompt-I sum
+    const bool flip = sgn != i[PREV_SIGN] && !(M::grid_locked && in_sync);
     const bool on_grid = rem <= 1 || rem == p.cib - 1;
     int rpc2 = i[RPC];
     if (flip) rpc2 = on_grid ? (rpc2 + 1 < 10 ? rpc2 + 1 : 10)
@@ -338,7 +453,8 @@ __host__ __device__ inline void epoch_update(ChanState& s, const float sums[6],
     const bool boundary = sync2 == 1 && rem2 < i[OLD_REM];
     const int pos = i[POS_CNT], neg = i[NEG_CNT];
     const int votes = pos + neg;
-    const int bit_val = pos > neg ? 1 : 0;
+    const int bit_val =
+        M::grid_locked ? (f[BIT_IP] > 0.0f ? 1 : 0) : (pos > neg ? 1 : 0);
     const bool bit_ready = boundary && votes > 0;
     const int bit_epoch = epoch - votes;
     int p2 = boundary ? 0 : pos;
@@ -358,7 +474,7 @@ __host__ __device__ inline void epoch_update(ChanState& s, const float sums[6],
     f[DOP] = new_dop;
     f[PH] = new_ph;
     f[DLL_PREV] = cerr;
-    f[PLL_PREV] = perr;
+    f[PLL_PREV] = phase_err_store;
     f[FLL_THETA] = perr;
     f[FLL_ERR] = fdiff;
     f[SNR_I] = snr_i2;
@@ -392,6 +508,12 @@ __host__ __device__ inline void epoch_update(ChanState& s, const float sums[6],
     out[8] = li2;
     out[9] = wrapped ? 1.0f : 0.0f;
     out[10] = lq2;
+    if constexpr (M::emit) {
+        out[11] = ie;
+        out[12] = qe;
+        out[13] = il;
+        out[14] = ql;
+    }
 }
 
 }  // namespace track

@@ -3,9 +3,11 @@
 //
 // Replaces the JAX package's Pallas TPU kernel K1,
 // stm32f4_sdr_gps_tpu/ops/pallas_track_scan.py::_kernel (launched by
-// pallas_track_scan).  It computes what K1 computes on the default
-// (non-coherent) path, not how: the TPU's sequential grid, epoch padding,
-// replica barrel and carrier-ramp cache are gone.
+// pallas_track_scan).  It computes what K1 computes, in all of K1's
+// tracking modes (the default loop, coherent_bit_vote, coherent_pll with
+// pll_ext_bits, emit_correlators: one instantiation of the kernel per
+// track::Mode, chosen per launch), not how: the TPU's sequential grid,
+// epoch padding, replica barrel and carrier-ramp cache are gone.
 //
 // Design.  One thread block of 256 threads per channel; a loop over the T
 // epochs runs inside the block, so time stays sequential with a 1 ms loop
@@ -16,8 +18,8 @@
 // upsampled code row at the integer half-chip shift m (E/P/L at m-1, m,
 // m+1).  The six partial sums are reduced with warp shuffles and shared
 // memory; thread 0 then runs the per-channel loop update (epoch_update in
-// track_epoch.cuh), writes the 11 output slots and publishes the next
-// epoch's shift, phase and Doppler to shared memory.
+// track_epoch.cuh), writes the 11 output slots (15 with the E/L slots) and
+// publishes the next epoch's shift, phase and Doppler to shared memory.
 //
 // Bound.  Per channel the kernel reads T x 2046 x 8 bytes of samples,
 // which the C blocks of one launch share through the 50 MB L2, and does
@@ -40,6 +42,7 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 
+template <class M>
 __global__ void __launch_bounds__(THREADS)
 track_scan_kernel(const float2* __restrict__ x, const float* __restrict__ u2,
                   float* __restrict__ f32s, int* __restrict__ i32s,
@@ -79,10 +82,11 @@ track_scan_kernel(const float2* __restrict__ x, const float* __restrict__ u2,
         }
         track::block_sum6<WARPS>(acc, s_part);
         if (tid == 0) {
-            float o[track::NOUT];
-            track::epoch_update(st, acc, p, c, o);
-            float* orow = out + (size_t)t * track::NOUT * C + c;
-            for (int j = 0; j < track::NOUT; ++j) orow[(size_t)j * C] = o[j];
+            float o[M::nout];
+            track::epoch_update<M>(st, acc, p, c, o);
+            float* orow = out + (size_t)t * M::nout * C + c;
+#pragma unroll
+            for (int j = 0; j < M::nout; ++j) orow[(size_t)j * C] = o[j];
             s_m = track::halfchip_shift(st.f[track::CP]);
             s_ph = st.f[track::PH];
             s_dopfs = st.f[track::DOP] / p.fs;
@@ -96,8 +100,9 @@ track_scan_kernel(const float2* __restrict__ x, const float* __restrict__ u2,
 
 // x: (T, 2046) complex64 as interleaved float pairs; u2: (C, 4352) f32;
 // f32s (16, C), i32s (14, C), wins (W, C) are updated in place; out:
-// (T, 11, C) f32.  fp/ip are the host parameter arrays (NFP floats, NIP
-// ints).  Launches on `stream` and returns cudaGetLastError().
+// (T, nout, C) f32, nout = ip[9] (11, or 15 with the E/L slots).  fp/ip
+// are the host parameter arrays (NFP floats, NIP ints).  Launches on
+// `stream` and returns cudaGetLastError().
 extern "C" int track_scan_launch(const void* x, const void* u2, void* f32s,
                                  void* i32s, void* wins, void* out, int T,
                                  int C, const void* fp, const void* ip,
@@ -110,9 +115,11 @@ extern "C" int track_scan_launch(const void* x, const void* u2, void* f32s,
     int* is = static_cast<int*>(i32s);
     int* ws = static_cast<int*>(wins);
     float* op = static_cast<float*>(out);
-    void* args[] = {&xp, &up, &fs, &is, &ws, &op, &T, &C, &p};
-    cudaLaunchKernel(reinterpret_cast<const void*>(&track_scan_kernel),
-                     dim3(C), dim3(THREADS), args, 0,
-                     static_cast<cudaStream_t>(stream));
-    return static_cast<int>(cudaGetLastError());
+    return track::dispatch_mode(static_cast<const int*>(ip), [&](auto mode) {
+        using M = decltype(mode);
+        track_scan_kernel<M><<<C, THREADS, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+            xp, up, fs, is, ws, op, T, C, p);
+        return static_cast<int>(cudaGetLastError());
+    });
 }

@@ -4,7 +4,8 @@ Counterpart of the JAX package's ``__graft_entry__.entry()``: 32 channels
 x 96 epochs through the tracking scan (the kernel on a CUDA device, its
 plain version on the CPU) carrying its own kernel state, followed by the
 on-device block digest — the program ``Receiver.process_block`` runs per
-block (runtime.receiver._track_and_digest_carried).
+block (runtime.receiver._track_and_digest_carried).  It runs on the card
+unless the caller asks for the CPU, and raises where there is no card.
 """
 
 from __future__ import annotations
@@ -20,9 +21,12 @@ from .signal.ca_code import ca_table_bipolar
 from .track.state import init_state
 
 
-def entry(device="cpu", num_channels: int = 32, num_epochs: int = 96):
+def entry(device="cuda", num_channels: int = 32, num_epochs: int = 96):
     """(fn, example_args): ``fn(ps, epochs, u2) -> (ps2, track_state,
     digest)`` with the arguments made from seed 0 on ``device``."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"entry(device={device!r}): CUDA is not "
+                           "available; pass device='cpu' to run on the CPU")
     plan = BASEBAND_PLAN
     cfg = TrackConfig(in_kernel_scan=True)
     s = plan.samples_per_epoch

@@ -13,12 +13,15 @@ One library per kernel source:
 * ``epl_lib``: the per-epoch E/P/L correlator (``csrc/epl.cu``, K2);
 * ``corr_bank_lib``: the correlator-bank probe (``csrc/corr_bank.cu``,
   P5);
-* ``forest_lib``: the epoch-cost probes (``csrc/forest.cu``, P6-P8).
+* ``forest_lib``: the epoch-cost probes (``csrc/forest.cu``, P6-P8);
+* ``roll_lib``: the row rolls and K1's replica barrel (``csrc/roll.cu``,
+  the roll probes P1-P4).
 
 The same arithmetic is also built with ``g++`` into a host library
-(``csrc/kernels_host.cpp``, ``csrc/forest_host.cpp``) so the CPU tests can
-check the CUDA sources' loop update, correlator and probe bodies on a
-machine without a GPU.
+(``csrc/kernels_host.cpp``, ``csrc/forest_host.cpp``,
+``csrc/roll_host.cpp``) so the CPU tests can check the CUDA sources' loop
+update, correlator, probe bodies and roll lanes on a machine without a
+GPU.
 """
 
 from __future__ import annotations
@@ -133,6 +136,10 @@ _CHAIN_ARGS = [_PTR] * 2 + [_INT] * 4
 _CONSTRUCTS_ARGS = [_PTR] * 4 + [_INT] * 3
 # x, w, st, wst, variant, C, G
 _LAYOUT_ARGS = [_PTR] * 4 + [_INT] * 3
+# x, amt, out, R, W, src_row
+_ROLL_ROWS_ARGS = [_PTR] * 3 + [_INT] * 3
+# u2, mc, es, e, p, l, R
+_BARREL_ARGS = [_PTR] * 6 + [_INT]
 
 
 # cached: the wrapper asks for its library on every launch, and finding
@@ -176,14 +183,25 @@ def forest_lib() -> ctypes.CDLL:
 
 
 @functools.cache
+def roll_lib() -> ctypes.CDLL:
+    """The roll probes' library (``roll_rows_launch``, ``barrel_launch``)."""
+    return _load("roll_cuda", [_nvcc()] + NVCC_FLAGS, ["roll.cu"],
+                 {"roll_rows_launch": _ROLL_ROWS_ARGS + [_PTR],
+                  "barrel_launch": _BARREL_ARGS + [_PTR]})
+
+
+@functools.cache
 def host_lib() -> ctypes.CDLL:
     """The host build of the kernels' arithmetic (``track_scan_host``,
     ``epl_host``, ``forest_chain_host``, ``forest_constructs_host``,
-    ``forest_layout_host``), built with g++ at first use."""
+    ``forest_layout_host``, ``roll_rows_host``, ``barrel_host``), built
+    with g++ at first use."""
     return _load("kernels_host", ["g++"] + GXX_FLAGS,
-                 ["kernels_host.cpp", "forest_host.cpp"],
+                 ["kernels_host.cpp", "forest_host.cpp", "roll_host.cpp"],
                  {"track_scan_host": _TRACK_SCAN_ARGS,
                   "epl_host": _EPL_ARGS,
                   "forest_chain_host": _CHAIN_ARGS,
                   "forest_constructs_host": _CONSTRUCTS_ARGS,
-                  "forest_layout_host": _LAYOUT_ARGS})
+                  "forest_layout_host": _LAYOUT_ARGS,
+                  "roll_rows_host": _ROLL_ROWS_ARGS,
+                  "barrel_host": _BARREL_ARGS})

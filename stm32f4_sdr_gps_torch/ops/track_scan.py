@@ -15,18 +15,23 @@ There is no fallback from one to the other: a CUDA tensor launches the
 kernel or raises.
 
 Both compute, per epoch and channel, the half-chip E/P/L correlator of
-ops.epl with the carrier rotated off exactly per sample, then the loop
-update of K1's default path: DLL, the polynomial Costas discriminator of
-K1 (kept so the port stays closest to the production kernel), FLL, the
-false-lock watchdog with its integer LCG kick, the SNR window latch and
-bit sync.  K1's carrier-ramp cache (and its ``ramp``/``dref`` state) is
-not carried over: the exact per-sample carrier is what the reference
-scan's half-chip mode computes, and sincospif is cheap on the card.
+ops.epl with the carrier rotated off exactly per sample, then K1's loop
+update: DLL, the polynomial Costas discriminator of K1 (kept so the port
+stays closest to the production kernel), FLL, the false-lock watchdog with
+its integer LCG kick, the SNR window latch and bit sync, in every one of
+K1's modes: ``coherent_bit_vote`` (grid-locked bit sync, the bit decided
+by the sign of its prompt-I sum), ``coherent_pll`` (the Costas loop closed
+once per bit on the bit's coherent sums, or on ``pll_ext_bits``
+sign-decided bits, with the watchdog held while synced) and
+``emit_correlators`` (the E/L output slots).  K1's carrier-ramp cache
+(and its ``ramp``/``dref`` state) is not carried over: the exact
+per-sample carrier is what the reference scan's half-chip mode computes,
+and sincospif is cheap on the card.
 
 Kernel state (:class:`ScanState`): the f32 and i32 planes in
 ``_F32_FIELDS``/``_I32_FIELDS`` order as (16, C) and (14, C) tensors and
 the watchdog sign window (W, C).  Output: a (T, 11, C) float32 slot
-stream, layout at ``NOUT``.
+stream ((T, 15, C) with the E/L slots), layout at ``NOUT``.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ import numpy as np
 import torch
 
 from ..config import CODE_LENGTH, FREQ_L1_HZ, SignalPlan, TrackConfig
-from ..track.scan import _lcg_uniform, _wrap_half, check_supported
+from ..track.scan import _lcg_uniform, _wrap_half
 from ..track.state import TrackOutputs, TrackState
 from .epl import S, U2P, epl_correlate_halfchip
 from .wipeoff import _f32, fma
@@ -60,8 +65,10 @@ NI32 = len(_I32_FIELDS)
 # 3 doppler (updated), 4 bit_ready, 5 bit_value, 6 bit_epoch,
 # 7 period_sync_ok, 8 snr_li (latched |I| window sum), 9 code_wrapped,
 # 10 snr_lq (latched |Q| window sum; snr_db = 10*log10(li/lq) is taken
-# outside the kernel, in outputs_from_raw)
+# outside the kernel, in outputs_from_raw), then only with
+# cfg.emit_correlators 11 ie, 12 qe, 13 il, 14 ql (NOUT_EL slots)
 NOUT = 11
+NOUT_EL = 15
 MAX_WIN = 32       # csrc/track_epoch.cuh MAX_WIN
 
 
@@ -144,13 +151,23 @@ def state_to_track_state(ps: ScanState) -> TrackState:
     )
 
 
+def _nout(cfg: TrackConfig) -> int:
+    return NOUT_EL if cfg.emit_correlators else NOUT
+
+
 def outputs_from_raw(out: torch.Tensor) -> TrackOutputs:
-    """Unpack the (T, NOUT, C) slot stream into TrackOutputs."""
-    z = torch.zeros((0,), dtype=torch.float32, device=out.device)
+    """Unpack the (T, NOUT, C) slot stream into TrackOutputs; a
+    (T, NOUT_EL, C) stream also fills the E/L diagnostics."""
+    if out.shape[1] == NOUT_EL:
+        diag = dict(ie=out[:, 11], qe=out[:, 12], il=out[:, 13],
+                    ql=out[:, 14])
+    else:
+        z = torch.zeros((0,), dtype=torch.float32, device=out.device)
+        diag = dict(ie=z, qe=z, il=z, ql=z)
     return TrackOutputs(
         ip=out[:, 0],
         qp=out[:, 1],
-        ie=z, qe=z, il=z, ql=z,
+        **diag,
         code_phase_chips=out[:, 2],
         doppler_hz=out[:, 3],
         snr_db=_snr_db_from_sums(out[:, 8], out[:, 10]),
@@ -165,11 +182,6 @@ def outputs_from_raw(out: torch.Tensor) -> TrackOutputs:
 def _check(state: ScanState, epochs: torch.Tensor, u2: torch.Tensor,
            plan: SignalPlan, cfg: TrackConfig) -> None:
     """Raise on what the kernel and its plain version do not take."""
-    check_supported(cfg)
-    if cfg.emit_correlators:
-        raise NotImplementedError(
-            "emit_correlators is not ported to the tracking-scan kernel: "
-            "ROADMAP Queue 1 (coherent modes in K1)")
     if plan.samples_per_epoch != S or plan.chips_per_sample != 0.5:
         raise ValueError("the tracking scan needs the 2.046 MHz baseband "
                          "plan (2046 samples per epoch)")
@@ -177,6 +189,8 @@ def _check(state: ScanState, epochs: torch.Tensor, u2: torch.Tensor,
     w = cfg.pll_check_window
     if not 2 <= w <= MAX_WIN:
         raise ValueError(f"pll_check_window must be in [2, {MAX_WIN}]")
+    if cfg.pll_ext_bits < 1:
+        raise ValueError("pll_ext_bits must be at least 1")
     want = {
         "f32": (state.f32, (NF32, c), torch.float32),
         "i32": (state.i32, (NI32, c), torch.int32),
@@ -222,8 +236,11 @@ def track_scan_reference(state: ScanState, epochs: torch.Tensor,
                          cfg: TrackConfig) -> tuple:
     """Plain torch version of the tracking-scan kernel: a Python loop over
     epochs, vectorized over channels.  Returns ``(new_state, out)`` with
-    out (T, NOUT, C) float32.  The CPU tests and chip_smoke.py hold the
-    kernel to it; ``track_scan_reference.calls`` counts its runs."""
+    out (T, NOUT, C) float32 ((T, NOUT_EL, C) with cfg.emit_correlators).
+    Every mode of K1 is a branch here, and an instantiation of the kernel
+    (track::Mode) that its track::Params select.  The CPU tests and
+    chip_smoke.py hold the kernel to it; ``track_scan_reference.calls``
+    counts its runs."""
     _check(state, epochs, u2, plan, cfg)
     track_scan_reference.calls += 1
     fs = plan.sample_rate_hz
@@ -283,17 +300,59 @@ def track_scan_reference(state: ScanState, epochs: torch.Tensor,
             * cfg.fll_scale,
             zero,
         )
+
+        # 20 ms coherent PLL (K1 :660-712): once synced, close the Costas
+        # loop only at each completed bit, on its coherent prompt sums (or
+        # on the sum of pll_ext_bits sign-decided bits); the per-epoch
+        # PLL and FLL stand still
+        perr_store = perr
+        if cfg.coherent_pll:
+            bit_done = in_sync & (rem < old_rem)
+            if cfg.pll_ext_bits > 1:
+                d = torch.where(bit_ip >= 0, 1.0, -1.0)
+                ext_ip = ext_ip + torch.where(bit_done, d * bit_ip, zero)
+                ext_qp = ext_qp + torch.where(bit_done, d * bit_qp, zero)
+                ext_cnt = ext_cnt + bit_done.to(torch.int32)
+                ext_done = bit_done & (ext_cnt >= cfg.pll_ext_bits)
+                perr_ext = _costas_err_poly(ext_ip, ext_qp)
+                dt_ext = cfg.pll_ext_bits * cib * cfg.dt_s
+                delta_ext = (
+                    cfg.pll_ext_c1 * _wrap_half(perr_ext - pll_prev)
+                    + cfg.pll_ext_c2 * dt_ext * perr_ext
+                ) * cfg.pll_ext_scale
+                pll_delta = torch.where(
+                    in_sync, torch.where(ext_done, delta_ext, zero),
+                    pll_delta)
+                perr_store = torch.where(
+                    in_sync, torch.where(ext_done, perr_ext, pll_prev), perr)
+                clear = ext_done | ~in_sync
+                ext_ip = torch.where(clear, zero, ext_ip)
+                ext_qp = torch.where(clear, zero, ext_qp)
+                ext_cnt = torch.where(clear, 0, ext_cnt).to(torch.int32)
+            else:
+                perr_bit = _costas_err_poly(bit_ip, bit_qp)
+                delta_bit = (
+                    cfg.pll_bit_c1 * _wrap_half(perr_bit - pll_prev)
+                    + cfg.pll_bit_c2 * (cib * cfg.dt_s) * perr_bit
+                ) * cfg.pll_bit_scale
+                pll_delta = torch.where(
+                    in_sync, torch.where(bit_done, delta_bit, zero),
+                    pll_delta)
+                perr_store = torch.where(
+                    in_sync, torch.where(bit_done, perr_bit, pll_prev), perr)
+            fll_delta = torch.where(in_sync, zero, fll_delta)
         new_dop = dop + pll_delta + fll_delta
         new_ph = fma(dop, _f32(S / fs), ph)
         new_ph = new_ph - torch.floor(new_ph)
 
         # false-lock watchdog (tracking.c:261-327): transitions of the
-        # window after this epoch's sign shifts in
+        # window after this epoch's sign shifts in; under coherent_pll the
+        # window and its counters stand still while synced (K1 :738-745)
         sgn = torch.where(ip > 0, 1, -1).to(torch.int32)
         trans = (sgn != win[w_len - 1]).to(torch.int32)
         for k in range(2, w_len):
             trans = trans + (win[k] != win[k - 1]).to(torch.int32)
-        win = torch.cat([win[1:], sgn[None]], dim=0)
+        shifted = torch.cat([win[1:], sgn[None]], dim=0)
         wend = wcnt == w_len - 1
         bad2 = torch.where(
             wend,
@@ -304,6 +363,12 @@ def track_scan_reference(state: ScanState, epochs: torch.Tensor,
         master2 = torch.where(
             wend & (bad2 > 9), master + 1,
             torch.where(wend & (bad2 == 0), 0, master))
+        if cfg.coherent_pll:
+            win = torch.where(in_sync[None], win, shifted)
+            bad2 = torch.where(in_sync, bad_cnt, bad2)
+            master2 = torch.where(in_sync, master, master2)
+        else:
+            win = shifted
         kick = master2 > cfg.pll_bad_state_threshold
         u = _lcg_uniform(epoch.to(torch.int64) * 37 + chan)
         new_dop = torch.where(kick, acq_dop + (u - 0.5) * 500.0, new_dop)
@@ -321,8 +386,14 @@ def track_scan_reference(state: ScanState, epochs: torch.Tensor,
         snr_q = torch.where(done, zero, snr_q2)
         snr_cnt = torch.where(done, 0, cnt2).to(torch.int32)
 
-        # bit sync (nav_data.c:46-138)
+        # bit sync (nav_data.c:46-138); grid-locked under coherent_bit_vote
+        # and coherent_pll (K1 :774-775, :791-794): once synced, flips
+        # neither rebase the boundary nor feed the sync counters, and the
+        # bit is the sign of its prompt-I sum
+        grid_locked = cfg.coherent_bit_vote or cfg.coherent_pll
         flip = sgn != prev_sign
+        if grid_locked:
+            flip = flip & ~in_sync
         on_grid = (rem <= 1) | (rem == cib - 1)
         rpc = torch.where(
             flip & on_grid, torch.clamp(rpc + 1, max=10),
@@ -336,7 +407,8 @@ def track_scan_reference(state: ScanState, epochs: torch.Tensor,
         rem2 = torch.where(flip, 0, rem).to(torch.int32)
         boundary = (sync2 == 1) & (rem2 < old_rem)
         votes = pos_cnt + neg_cnt
-        bit_val = (pos_cnt > neg_cnt).to(torch.int32)
+        bit_val = ((bit_ip > 0) if grid_locked
+                   else (pos_cnt > neg_cnt)).to(torch.int32)
         bit_ready = boundary & (votes > 0)
         bit_epoch = epoch - votes
         p2 = torch.where(boundary, 0, pos_cnt)
@@ -352,14 +424,17 @@ def track_scan_reference(state: ScanState, epochs: torch.Tensor,
         rem = torch.where(rem2 + 1 == cib, 0, rem2 + 1)
         wcnt = torch.where(wcnt + 1 == w_len, 0, wcnt + 1)
 
-        outs.append(torch.stack([
+        slots = [
             ip, qp, cp, new_dop, bit_ready.to(torch.float32),
             bit_val.to(torch.float32), bit_epoch.to(torch.float32),
             sync2.to(torch.float32), snr_li, wrapped.to(torch.float32),
             snr_lq,
-        ]))
+        ]
+        if cfg.emit_correlators:
+            slots += [ie, qe, il, ql]
+        outs.append(torch.stack(slots))
         cp, dop, ph = new_cp, new_dop, new_ph
-        dll_prev, pll_prev, fll_theta, fll_err = cerr, perr, perr, fdiff
+        dll_prev, pll_prev, fll_theta, fll_err = cerr, perr_store, perr, fdiff
         fll_primed, prev_sign, sync, old_rem = one, sgn, sync2, rem2
         bad_cnt, master = bad2, master2
         epoch = epoch + 1
@@ -374,7 +449,7 @@ def track_scan_reference(state: ScanState, epochs: torch.Tensor,
     if outs:
         out = torch.stack(outs)
     else:
-        out = torch.zeros((0, NOUT, u2.shape[0]), dtype=torch.float32,
+        out = torch.zeros((0, _nout(cfg), u2.shape[0]), dtype=torch.float32,
                           device=u2.device)
     return ScanState(f32=f32, i32=i32, win=win), out
 
@@ -383,21 +458,27 @@ track_scan_reference.calls = 0
 
 
 def kernel_params(plan: SignalPlan, cfg: TrackConfig) -> tuple:
-    """(float32[16], int32[6]) loop constants in the order of
-    csrc/track_epoch.cuh params_from_arrays, each rounded to float32 as
+    """(float32[22], int32[10]) loop constants and mode flags in the order
+    of csrc/track_epoch.cuh params_from_arrays, each rounded to float32 as
     the plain version's torch ops round the same Python constants."""
     fs = plan.sample_rate_hz
+    cib = cfg.codes_in_bit
     fp = np.array([
         fs, plan.chips_per_sample, FREQ_L1_HZ, S / fs,
         cfg.dll_c1, cfg.dll_c2 * cfg.dt_s, cfg.fine_ratio,
         cfg.pll_wide_c1, cfg.pll_wide_c2, cfg.pll_narrow_c1,
         cfg.pll_narrow_c2, cfg.dt_s, cfg.pll_scale,
         cfg.fll_c1 * cfg.dt_s, cfg.fll_c2 * cfg.dt_s, cfg.fll_scale,
+        cfg.pll_bit_c1, cfg.pll_bit_c2 * (cib * cfg.dt_s), cfg.pll_bit_scale,
+        cfg.pll_ext_c1, cfg.pll_ext_c2 * (cfg.pll_ext_bits * cib * cfg.dt_s),
+        cfg.pll_ext_scale,
     ], dtype=np.float32)
     ip = np.array([
-        cfg.codes_in_bit, cfg.pll_check_window, cfg.snr_window_epochs,
+        cib, cfg.pll_check_window, cfg.snr_window_epochs,
         min(cfg.pll_bad_state_threshold, np.iinfo(np.int32).max),
         cfg.bit_sync_up, cfg.bit_sync_down,
+        cfg.coherent_pll, cfg.coherent_bit_vote, cfg.pll_ext_bits,
+        _nout(cfg),
     ], dtype=np.int32)
     return fp, ip
 
@@ -421,7 +502,7 @@ def track_scan_cuda(state: ScanState, epochs: torch.Tensor,
     t_cnt, c = epochs.shape[0], u2.shape[0]
     f32, i32, win = (t.clone(memory_format=torch.contiguous_format)
                      for t in state)
-    out = torch.empty((t_cnt, NOUT, c), dtype=torch.float32,
+    out = torch.empty((t_cnt, _nout(cfg), c), dtype=torch.float32,
                       device=epochs.device)
     if t_cnt == 0 or c == 0:
         return ScanState(f32=f32, i32=i32, win=win), out
@@ -458,7 +539,7 @@ def track_scan_host(state: ScanState, epochs: torch.Tensor,
     u2 = u2.contiguous()
     f32, i32, win = (t.clone(memory_format=torch.contiguous_format)
                      for t in state)
-    out = torch.empty((t_cnt, NOUT, c), dtype=torch.float32)
+    out = torch.empty((t_cnt, _nout(cfg), c), dtype=torch.float32)
     fp, ip = kernel_params(plan, cfg)
     rc = host_lib().track_scan_host(
         x.data_ptr(), u2.data_ptr(), f32.data_ptr(), i32.data_ptr(),

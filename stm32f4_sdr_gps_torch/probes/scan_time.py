@@ -1,0 +1,126 @@
+"""K1's time per 1000-epoch block on the card, for one or more checkouts
+of this repository, in turns.
+
+    python stm32f4_sdr_gps_torch/probes/scan_time.py ROOT [ROOT ...]
+
+For each ROOT in the order given (parent, change, change, parent to
+compare two commits on one card), a fresh process imports
+``stm32f4_sdr_gps_torch`` from ROOT, builds that checkout's tracking-scan
+kernel and times it in the default mode on :func:`k1_scenario` at 32 and
+at 4 channels: the median over 5 runs of 20 back-to-back launches, timed
+with CUDA events.  Prints one JSON line per ROOT and the card's
+``nvidia-smi`` name and power limit; exits 1 without a card.  Run as a
+script, the file imports the package only from ROOT, so it also times
+checkouts that predate it.  chip_smoke.py's phase 3 builds its K1
+scenario with :func:`k1_scenario` too.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+
+CIB = 3                       # codes per nav bit in the K1 scenario
+
+
+def k1_scenario(device):
+    """K1's 32-channel scenario: PRNs 1-32 at 48 dBHz, seeded Doppler and
+    code phase, CIB codes per bit, 1000 epochs.  Returns the initial
+    TrackState (0.1 chip and 15 Hz off the truth), the (1000, 2046)
+    complex64 epochs and the (32, 4352) code rows, on ``device``.  Imports
+    the package by its absolute name: under ``--one ROOT``, ROOT's."""
+    import numpy as np
+    import torch
+
+    from stm32f4_sdr_gps_torch.ops.epl import upsampled_code_doubled
+    from stm32f4_sdr_gps_torch.signal.ca_code import ca_table_bipolar
+    from stm32f4_sdr_gps_torch.signal.simulator import SimSat, simulate_capture
+    from stm32f4_sdr_gps_torch.track.state import init_state
+
+    prns = list(range(1, 33))
+    rng = np.random.default_rng(7)
+    sats = [SimSat(prn=p, doppler_hz=float(rng.uniform(-4000, 4000)),
+                   code_phase_chips=float(rng.uniform(0, 1023)),
+                   cn0_dbhz=48.0, codes_in_bit=CIB,
+                   nav_bits=rng.integers(0, 2, 400)) for p in prns]
+    x_np, _ = simulate_capture(sats, num_epochs=1000, seed=7)
+    x = torch.as_tensor(x_np.reshape(1000, 2046), device=device)
+    u2 = torch.as_tensor(upsampled_code_doubled(ca_table_bipolar(prns)),
+                         device=device)
+    st = init_state(len(prns),
+                    np.array([s.code_phase_chips + 0.1 for s in sats]),
+                    np.array([s.doppler_hz + 15.0 for s in sats]),
+                    device=device)
+    return st, x, u2
+
+
+def _time_one(root: str) -> dict:
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import torch
+
+    import stm32f4_sdr_gps_torch as pkg
+    from stm32f4_sdr_gps_torch.config import BASEBAND_PLAN, TrackConfig
+    from stm32f4_sdr_gps_torch.ops import track_scan as ts
+
+    if os.path.dirname(os.path.dirname(os.path.abspath(pkg.__file__))) != root:
+        raise RuntimeError(f"imported {pkg.__file__}, not from {root}")
+    st, x, u2 = k1_scenario(torch.device("cuda"))
+    cfg = TrackConfig(codes_in_bit=CIB)
+    ps = ts.state_from_track_state(st)
+    res = {"root": root}
+    for c in (32, 4):
+        sub = ts.ScanState(*(t[:, :c].contiguous() for t in ps))
+        table = u2[:c].contiguous()
+
+        def launch():
+            ts.track_scan_cuda(sub, x, table, BASEBAND_PLAN, cfg)
+
+        for _ in range(20):                        # warm the clocks
+            launch()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(20):
+                launch()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end) / 20)
+        res[f"ms_{c}ch"] = statistics.median(times)
+    return res
+
+
+def main(argv) -> int:
+    if len(argv) == 3 and argv[1] == "--one":
+        print(json.dumps(_time_one(argv[2])))
+        return 0
+    if len(argv) < 2:
+        print(f"usage: {argv[0]} ROOT [ROOT ...]", file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("scan_time: needs a CUDA device", file=sys.stderr)
+        return 1
+    for root in argv[1:]:
+        out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--one", root], capture_output=True, text=True)
+        if out.returncode != 0:
+            print(out.stderr, file=sys.stderr)
+            return out.returncode
+        print(out.stdout.strip().splitlines()[-1], flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))

@@ -17,9 +17,11 @@ batched program per stage over a recorded capture:
 5. **Solve** — observables formed on the sample ledger at the solve
    cadence, Gauss-Newton PVT (gps_master.c:392-425).
 
-Not ported yet (ROADMAP Queue 1): the coherent weak-signal chain and its
-aided bit sync, background re-acquisition and channel demotion, RTCM
-output, checkpointing.
+The tracking modes ``TrackConfig.coherent_bit_vote`` and
+``emit_correlators`` run on either tracking path.  Not ported yet (ROADMAP
+Queue 1): ``coherent_pll`` through the Receiver (its 256-epoch
+fine-Doppler handoff and aided bit sync), background re-acquisition and
+channel demotion, RTCM output, checkpointing.
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ from ..pvt.solve import (Solution, identify_grid_fault, pntpos,
                          solution_plausible)
 from ..signal.ca_code import ca_table_bipolar
 from ..track.pretrack import refine_code_phase
-from ..track.scan import check_supported, track_block
+from ..track.scan import track_block
 from ..track.state import TrackOutputs, TrackState, init_state
 from ..utils.profiling import Profiler
 from .digest import cn0_from_moments, digest_block, digest_to_host
@@ -180,14 +182,21 @@ class ReceiverReport:
 
 class Receiver:
     """Multi-channel GPS L1 C/A receiver over a sample stream, with its
-    tensors on ``device``."""
+    tensors on ``device``: the card unless the caller asks for the CPU
+    (``device="cpu"``).  Without a card it raises; it never falls back to
+    the CPU."""
 
-    def __init__(self, config: ReceiverConfig, device="cpu"):
+    def __init__(self, config: ReceiverConfig, device="cuda"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"Receiver(device={device!r}): CUDA is not "
-                               "available")
-        check_supported(config.track)
+                               "available; pass device='cpu' to run on the "
+                               "CPU")
+        if config.track.coherent_pll:
+            raise NotImplementedError(
+                "coherent_pll through the Receiver (the 256-epoch "
+                "fine-Doppler handoff and track/aided_sync.py) is not "
+                "ported yet: ROADMAP Queue 1")
         if config.enable_rtcm:
             raise NotImplementedError(
                 "enable_rtcm: RTCM output is not ported yet (ROADMAP "

@@ -44,15 +44,6 @@ from .state import TrackOutputs, TrackState
 _U32 = 0xFFFFFFFF
 
 
-def check_supported(cfg: TrackConfig) -> None:
-    """Raise for the tracking modes the port does not run yet."""
-    if cfg.coherent_pll or cfg.coherent_bit_vote or cfg.pll_ext_bits > 1:
-        raise NotImplementedError(
-            "coherent tracking modes (coherent_pll, coherent_bit_vote, "
-            "pll_ext_bits > 1) are not ported yet: ROADMAP Queue 1, "
-            "'coherent modes in K1 plus track/aided_sync.py'")
-
-
 def _wrap_half(x):
     """Wrap to (-0.5, 0.5] half-cycle range (the +/-pi/2 folds of
     tracking.c:188-192, 233-242 expressed in cycles)."""
@@ -178,6 +169,64 @@ def track_epoch_step(
         * cfg.fll_scale,
         zero,
     )
+
+    # ---- 20 ms coherent PLL (coherent_pll) -------------------------------
+    # Once synced, close the Costas loop on the coherent prompt sums of
+    # each completed bit instead of per-epoch prompts: the grid is frozen
+    # (sign_flip masked below), so the bit boundary is derivable from the
+    # un-rebased swap epoch.
+    phase_err_store = phase_err
+    ext_ip = state.ext_ip_sum
+    ext_qp = state.ext_qp_sum
+    ext_cnt = state.ext_bit_cnt
+    if cfg.coherent_pll:
+        in_sync = state.period_sync_ok
+        bit_done = in_sync & (rem_pred < state.old_remainder)
+        if cfg.pll_ext_bits > 1:
+            # extended K-bit data-wipeoff PLL: each completed bit's
+            # coherent prompt vector is sign-decided (the nav-bit decision
+            # removes the data modulation) and accumulated; the Costas
+            # loop closes on the K-bit coherent sum every K bits
+            d = torch.where(state.bit_ip_sum >= 0, 1.0, -1.0)
+            ext_ip = ext_ip + torch.where(bit_done, d * state.bit_ip_sum,
+                                          zero)
+            ext_qp = ext_qp + torch.where(bit_done, d * state.bit_qp_sum,
+                                          zero)
+            ext_cnt = ext_cnt + bit_done.to(torch.int32)
+            ext_done = bit_done & (ext_cnt >= cfg.pll_ext_bits)
+            perr_ext = _costas_phase_err(ext_ip, ext_qp)
+            dt_ext = cfg.pll_ext_bits * cfg.codes_in_bit * cfg.dt_s
+            pll_delta_ext = (
+                cfg.pll_ext_c1 * _wrap_half(perr_ext - state.pll_err_prev)
+                + cfg.pll_ext_c2 * dt_ext * perr_ext
+            ) * cfg.pll_ext_scale
+            pll_delta = torch.where(
+                in_sync, torch.where(ext_done, pll_delta_ext, zero),
+                pll_delta)
+            phase_err_store = torch.where(
+                in_sync, torch.where(ext_done, perr_ext, state.pll_err_prev),
+                phase_err)
+            # reset the accumulator after each update; clear stale sums
+            # whenever sync is lost
+            clear = ext_done | ~in_sync
+            ext_ip = torch.where(clear, zero, ext_ip)
+            ext_qp = torch.where(clear, zero, ext_qp)
+            ext_cnt = torch.where(clear, 0, ext_cnt).to(torch.int32)
+        else:
+            perr_bit = _costas_phase_err(state.bit_ip_sum, state.bit_qp_sum)
+            dt_bit = cfg.codes_in_bit * cfg.dt_s
+            pll_delta_bit = (
+                cfg.pll_bit_c1 * _wrap_half(perr_bit - state.pll_err_prev)
+                + cfg.pll_bit_c2 * dt_bit * perr_bit
+            ) * cfg.pll_bit_scale
+            pll_delta = torch.where(
+                in_sync, torch.where(bit_done, pll_delta_bit, zero),
+                pll_delta)
+            phase_err_store = torch.where(
+                in_sync, torch.where(bit_done, perr_bit, state.pll_err_prev),
+                phase_err)
+        fll_delta = torch.where(in_sync, zero, fll_delta)
+
     new_doppler = state.doppler_hz + pll_delta + fll_delta
 
     # ---- false-lock watchdog (tracking.c:261-327) -----------------------
@@ -198,6 +247,13 @@ def track_epoch_step(
         state.pll_bad_master_cnt + 1,
         torch.where(window_end & (bad_cnt == 0), 0, state.pll_bad_master_cnt),
     )
+    if cfg.coherent_pll:
+        # the per-epoch sign-transition statistic is meaningless at the
+        # C/N0 this mode targets: freeze the watchdog while synced
+        hold = state.period_sync_ok
+        win = torch.where(hold[:, None], state.ip_sign_window, win)
+        bad_cnt = torch.where(hold, state.pll_bad_cnt, bad_cnt)
+        master = torch.where(hold, state.pll_bad_master_cnt, master)
     kick = master > cfg.pll_bad_state_threshold
     chan = torch.arange(ip.shape[0], dtype=torch.int64, device=ip.device)
     rand = _lcg_uniform(state.epoch_idx.to(torch.int64) * 37 + chan)
@@ -225,6 +281,10 @@ def track_epoch_step(
     cib = cfg.codes_in_bit
     epoch = state.epoch_idx
     sign_flip = ip_sign != state.prev_ip_sign
+    if cfg.coherent_bit_vote or cfg.coherent_pll:
+        # grid-locked mode: once synced, flips neither rebase the boundary
+        # nor feed the sync counters
+        sign_flip = sign_flip & ~state.period_sync_ok
     rem_at_flip = torch.remainder(epoch - state.last_swap_epoch, cib)
     on_grid = (rem_at_flip <= 1) | (rem_at_flip == cib - 1)
     rpc = torch.where(
@@ -241,10 +301,15 @@ def track_epoch_step(
     )
     last_swap = torch.where(sign_flip, epoch, state.last_swap_epoch)
 
-    # bit extraction: nav-bit majority vote (nav_data.c:223-253)
+    # bit extraction: nav-bit majority vote (nav_data.c:223-253), or the
+    # sign of the coherent prompt-I sum over the bit (coherent_bit_vote:
+    # the full bit-length integration gain reaches the decision)
     remainder = torch.remainder(epoch - last_swap, cib).to(torch.int32)
     bit_boundary = sync_ok & (remainder < state.old_remainder)
-    bit_value = (state.bit_pos_cnt > state.bit_neg_cnt).to(torch.int8)
+    if cfg.coherent_bit_vote or cfg.coherent_pll:
+        bit_value = (state.bit_ip_sum > 0).to(torch.int8)
+    else:
+        bit_value = (state.bit_pos_cnt > state.bit_neg_cnt).to(torch.int8)
     votes = state.bit_pos_cnt + state.bit_neg_cnt
     bit_ready = bit_boundary & (votes > 0)
     bit_epoch = epoch - votes  # epoch at which the completed bit started
@@ -262,7 +327,7 @@ def track_epoch_step(
         doppler_hz=new_doppler,
         code_phase_chips=wrapped_phase,
         dll_err_prev=code_err,
-        pll_err_prev=phase_err,
+        pll_err_prev=phase_err_store,
         fll_theta_prev=theta,
         fll_err_prev=freq_diff,
         fll_primed=torch.ones_like(state.fll_primed),
@@ -285,9 +350,9 @@ def track_epoch_step(
         bit_qp_sum=qp_sum,
         epoch_idx=epoch + 1,
         code_wraps=state.code_wraps + code_wrapped.to(torch.int32),
-        ext_ip_sum=state.ext_ip_sum,
-        ext_qp_sum=state.ext_qp_sum,
-        ext_bit_cnt=state.ext_bit_cnt,
+        ext_ip_sum=ext_ip,
+        ext_qp_sum=ext_qp,
+        ext_bit_cnt=ext_cnt,
     )
     if cfg.emit_correlators:
         diag = dict(ie=ie, qe=qe, il=il, ql=ql)
@@ -336,7 +401,6 @@ def track_block(
     (ops.track_scan.track_block_kernel); the ``code_table`` must then be
     the doubled upsampled table, as for ``cfg.use_pallas``.
     """
-    check_supported(cfg)
     if resolve_in_kernel_scan(cfg, epochs.device):
         from ..ops.track_scan import track_block_kernel
 

@@ -1,6 +1,7 @@
 """The hand-written kernels on the card against their plain torch
-versions: the tracking scan (K1), the per-epoch E/P/L correlator (K2), the
-correlator-bank probe (P5) and the epoch-cost probes (P6-P8).
+versions: the tracking scan (K1, in each of its modes), the per-epoch
+E/P/L correlator (K2), the correlator-bank probe (P5), the epoch-cost
+probes (P6-P8) and the roll probes (P1-P4).
 
 Needs an NVIDIA GPU and nvcc; every test skips without a CUDA device.
 Imports only the port, torch and numpy (the machine with the card has no
@@ -18,7 +19,8 @@ K2's sums: rtol 1e-4 / atol 1e-3 (tests/test_torch_epl.py says why).
 P5's sums: 1e-4 of the largest (float32 sums over T steps of 2048-term
 row sums, in other orders on the two sides).  P6-P8: each probe module's
 ``tolerance`` (its docstring says why), at the check size on the probe's
-inputs and on seeded ones.
+inputs and on seeded ones.  P1-P4: bit for bit (a roll is a copy), at 8,
+32 and 128 rows on the tools' inputs and on seeded ones.
 """
 
 import numpy as np
@@ -32,7 +34,8 @@ from stm32f4_sdr_gps_torch.ops import track_scan as ts
 from stm32f4_sdr_gps_torch.ops.epl import upsampled_code_doubled
 from stm32f4_sdr_gps_torch.probes import corr_bank as cb
 from stm32f4_sdr_gps_torch.probes import (forest_chain, forest_constructs,
-                                          forest_layout)
+                                          forest_layout, mosaic_bisect,
+                                          roll_wide)
 from stm32f4_sdr_gps_torch.track.scan import track_block
 from stm32f4_sdr_gps_torch.signal.ca_code import ca_table_bipolar
 from stm32f4_sdr_gps_torch.signal.simulator import SimSat, simulate_capture
@@ -91,6 +94,11 @@ def assert_scan_match(ps_k, out_k, ps_r, out_r):
               "code_wrapped"):
         np.testing.assert_array_equal(getattr(ok, f).cpu(),
                                       getattr(orf, f).cpu(), err_msg=f)
+    if orf.ie.numel():
+        for f in ("ie", "qe", "il", "ql"):
+            np.testing.assert_allclose(getattr(ok, f).cpu(),
+                                       getattr(orf, f).cpu(), rtol=2e-2,
+                                       atol=2.0, err_msg=f)
     np.testing.assert_array_equal(ps_k.i32.cpu(), ps_r.i32.cpu())
     np.testing.assert_array_equal(ps_k.win.cpu(), ps_r.win.cpu())
     assert orf.bit_ready.any(), "scenario never produced a nav bit"
@@ -122,6 +130,30 @@ def test_kernel_matches_plain_version(dev, window):
     assert ts.track_scan_cuda.launches == n0 + 1
     ps_r, out_r = ts.track_scan_reference(ps0, x, u2, PLAN, cfg)
     assert_scan_match(ps_k, out_k, ps_r, out_r)
+
+
+MODES = {
+    "coherent_bit_vote": dict(coherent_bit_vote=True),
+    "coherent_pll": dict(coherent_pll=True),
+    "coherent_pll_ext5": dict(coherent_pll=True, pll_ext_bits=5),
+    "emit_correlators": dict(emit_correlators=True),
+}
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_kernel_mode_matches_plain_version(dev, mode):
+    """K1's other modes: the same rules, the E/L slots under the I/Q
+    tolerance, the K-bit accumulators under test_pallas_scan's."""
+    cfg = TrackConfig(codes_in_bit=CIB, pll_bad_state_threshold=10**6,
+                      **MODES[mode])
+    ps0, x, u2 = _inputs(90, dev)
+    ps_k, out_k = ts.track_scan(ps0, x, u2, PLAN, cfg)
+    torch.cuda.synchronize()
+    assert out_k.shape[1] == (15 if cfg.emit_correlators else 11)
+    ps_r, out_r = ts.track_scan_reference(ps0, x, u2, PLAN, cfg)
+    assert_scan_match(ps_k, out_k, ps_r, out_r)
+    np.testing.assert_allclose(ps_k.f32[14:].cpu(), ps_r.f32[14:].cpu(),
+                               rtol=2e-2, atol=10.0)
 
 
 def test_kernel_watchdog_kick_matches(dev):
@@ -318,3 +350,24 @@ def test_forest_kernel_matches_plain_version(dev, probe, variant, which):
         g, w = g.cpu().numpy(), w.cpu().numpy()
         assert np.all(np.isfinite(g)) and np.all(np.isfinite(w))
         np.testing.assert_allclose(g, w, rtol=rtol, atol=atol)
+
+
+ROLL_CASES = ([(roll_wide, c) for c in roll_wide.CASES]
+              + [(mosaic_bisect, c) for c in mosaic_bisect.CASES])
+
+
+@pytest.mark.parametrize("rows", [8, 32, 128])
+@pytest.mark.parametrize("which", ["probe", "seeded"])
+@pytest.mark.parametrize("mod,case", ROLL_CASES,
+                         ids=[c for _, c in ROLL_CASES])
+def test_roll_kernel_matches_plain_version(dev, mod, case, which, rows):
+    args = mod.check_args(case, which, dev, rows)
+    fn = mod.KERNELS[case]
+    n0 = fn.launches
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == n0 + 1
+    want = mod.PLAIN[case](*args)
+    got, want = ((t if isinstance(t, tuple) else (t,)) for t in (got, want))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

@@ -6,7 +6,10 @@
 * on the tracking-scan kernel's plain version (in_kernel_scan=True), the
   run of tests/test_receiver.py:137-170;
 * on the per-epoch half-chip path (use_pallas=True, in_kernel_scan=False)
-  against the JAX Receiver on the same path, bit for bit;
+  against the JAX Receiver on the same path, bit for bit, and with
+  coherent_bit_vote on the reference scan against the JAX Receiver in
+  that mode;
+* Receiver and entry() default to the card and raise without one;
 * the full-scale cold start to a fix, gated behind RUN_SLOW=1 like
   tests/test_e2e_slow.py.
 """
@@ -43,7 +46,7 @@ def _port_goldens(device_digest=True):
         track_block_epochs=500,
         device_digest=device_digest,
     )
-    rx = Receiver(cfg)
+    rx = Receiver(cfg, device="cpu")
     rx.run(x)
     out = {}
     for ch in rx.channels:
@@ -98,7 +101,7 @@ def test_receiver_runs_on_kernel_plain_version():
                           in_kernel_scan=True),
         enable_position=False,
     )
-    rx = Receiver(cfg)
+    rx = Receiver(cfg, device="cpu")
     assert rx._digest_active
     calls = ts.track_scan_reference.calls
     rx.run(x)
@@ -114,6 +117,27 @@ def test_receiver_runs_on_kernel_plain_version():
     rx.track_state = rx.track_state._replace(
         doppler_hz=rx.track_state.doppler_hz + 1.0)
     assert rx.track_state is not rx._scan_carry_ref
+
+
+def test_receiver_emit_correlators_on_kernel_plain_version():
+    """Receiver.run with emit_correlators on the kernel's plain version:
+    the E/L slots turn the device digest off (as in the JAX Receiver) and
+    leave the loop as it was, so every channel decodes the same bits at
+    the same epochs as without them."""
+    x, _ = _make_capture(700, seed=23)
+    bits = []
+    for emit in (False, True):
+        cfg = ReceiverConfig(
+            prns=PRNS, enable_position=False,
+            track=TrackConfig(codes_in_bit=CIB, pll_bad_state_threshold=10**9,
+                              in_kernel_scan=True, emit_correlators=emit))
+        rx = Receiver(cfg, device="cpu")
+        assert rx._digest_active is not emit
+        rx.run(x)
+        assert all(ch.bit_count > 50 for ch in rx.channels)
+        bits.append([(ch.prn, ch.bit_count, ch.framer.history)
+                     for ch in rx.channels])
+    assert bits[0] == bits[1]
 
 
 def test_receiver_half_chip_per_epoch_path_matches_jax():
@@ -137,11 +161,41 @@ def test_receiver_half_chip_per_epoch_path_matches_jax():
         track=JTrackConfig(pallas_interpret=True, **common)))
     j_rx.run(x)
     rx = Receiver(ReceiverConfig(prns=PRNS, enable_position=False,
-                                 track=TrackConfig(**common)))
+                                 track=TrackConfig(**common)),
+                  device="cpu")
     calls = epl.epl_correlate_halfchip.calls
     report = rx.run(x)
     tracked = report.epochs_processed - rx.config.acq.noncoherent_epochs
     assert epl.epl_correlate_halfchip.calls - calls == tracked
+    assert [c.prn for c in rx.channels] == [c.prn for c in j_rx.channels]
+    for ch, jch in zip(rx.channels, j_rx.channels):
+        assert ch.state_name == "TRACKING"
+        assert ch.bit_count > 50, (ch.prn, ch.bit_count)
+        assert ch.bit_count == jch.bit_count, ch.prn
+        assert ch.framer.history == jch.framer.history, ch.prn
+        assert abs(ch.doppler_hz - jch.doppler_hz) < 0.05, ch.prn
+        assert abs(ch.code_phase_chips - jch.code_phase_chips) < 0.05, ch.prn
+
+
+def test_receiver_coherent_bit_vote_matches_jax():
+    """Receiver.run with TrackConfig(coherent_bit_vote=True) on the
+    reference scan against the JAX Receiver in the same mode: the same
+    bits, in value and epoch, on every channel (grid-locked bit sync, the
+    bit decided by the sign of its prompt-I sum)."""
+    from stm32f4_sdr_gps_tpu.config import ReceiverConfig as JReceiverConfig
+    from stm32f4_sdr_gps_tpu.config import TrackConfig as JTrackConfig
+    from stm32f4_sdr_gps_tpu.runtime.receiver import Receiver as JReceiver
+
+    x, _ = _make_capture(700, seed=23)
+    common = dict(codes_in_bit=CIB, pll_bad_state_threshold=10**9,
+                  coherent_bit_vote=True, in_kernel_scan=False)
+    j_rx = JReceiver(JReceiverConfig(prns=PRNS, enable_position=False,
+                                     track=JTrackConfig(**common)))
+    j_rx.run(x)
+    rx = Receiver(ReceiverConfig(prns=PRNS, enable_position=False,
+                                 track=TrackConfig(**common)),
+                  device="cpu")
+    rx.run(x)
     assert [c.prn for c in rx.channels] == [c.prn for c in j_rx.channels]
     for ch, jch in zip(rx.channels, j_rx.channels):
         assert ch.state_name == "TRACKING"
@@ -159,7 +213,7 @@ def test_warm_reset_restarts_tracking():
     cfg = ReceiverConfig(prns=PRNS, enable_position=False,
                          track=TrackConfig(codes_in_bit=CIB,
                                            pll_bad_state_threshold=10**9))
-    rx = Receiver(cfg)
+    rx = Receiver(cfg, device="cpu")
     rx.run(x)
     cursor = rx.epoch_cursor
     dops = {ch.prn: ch.doppler_hz for ch in rx.channels}
@@ -179,18 +233,34 @@ def test_receiver_on_cuda_needs_cuda():
         Receiver(ReceiverConfig(), device="cuda")
 
 
+def test_entry_points_default_to_the_card():
+    """Receiver(cfg) and entry() with no device run on the card, and raise
+    where there is none: no fallback to the CPU."""
+    from stm32f4_sdr_gps_torch.entry import entry
+
+    if torch.cuda.is_available():
+        assert Receiver(ReceiverConfig()).device.type == "cuda"
+        _, (ps, epochs, u2) = entry(num_channels=2, num_epochs=2)
+        assert epochs.is_cuda and u2.is_cuda and ps.f32.is_cuda
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Receiver(ReceiverConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry()
+
+
 @pytest.mark.parametrize("change", [
     dict(enable_rtcm=True), dict(reacquire_period_ms=1000),
     dict(track=TrackConfig(coherent_pll=True))])
 def test_unported_receiver_options_raise(change):
     with pytest.raises(NotImplementedError):
-        Receiver(ReceiverConfig(**change))
+        Receiver(ReceiverConfig(**change), device="cpu")
 
 
 def test_entry_block_program():
     from stm32f4_sdr_gps_torch.entry import entry
 
-    fn, args = entry()
+    fn, args = entry(device="cpu")
     ps, st, d = fn(*args)
     assert ps.f32.shape == (16, 32) and ps.i32.shape == (14, 32)
     assert d.bit_value.shape == (96 // 20 + 8, 32)
@@ -209,7 +279,7 @@ def test_full_cold_start_to_fix(track):
     sc = fix_scenario(num_epochs=29_000)
     cfg = ReceiverConfig(prns=sc.prns, track_block_epochs=1000,
                          track=TrackConfig(**track))
-    report = Receiver(cfg).run(sc.samples)
+    report = Receiver(cfg, device="cpu").run(sc.samples)
     for ch in report.channels:
         assert ch.eph.has_full_set, ch.prn
     assert report.solutions, "no position fix obtained"

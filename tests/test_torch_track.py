@@ -5,13 +5,14 @@
 * the tracking-scan kernel's plain version (``track_scan_reference``)
   against the JAX Pallas kernel K1 in interpret mode;
 * the host build of the CUDA kernel's arithmetic against the plain
-  version, with exact integer decisions.
+  version, with exact integer decisions;
+* all three in each of K1's other modes (``MODES``: coherent_bit_vote,
+  coherent_pll, coherent_pll with pll_ext_bits, emit_correlators).
 
 Same scenario and tolerance helpers as tests/test_pallas_scan.py.  Inputs
 go to both packages as numpy arrays.
 """
 
-import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -243,17 +244,113 @@ def test_track_block_dispatch_by_device():
     assert ts.track_scan_reference.calls == calls + 1
 
 
-@pytest.mark.parametrize("change", [
-    dict(coherent_pll=True), dict(coherent_bit_vote=True),
-    dict(pll_ext_bits=4), dict(emit_correlators=True)])
-def test_unported_modes_raise(change):
-    epochs, table, cp0, dop0 = _setup(4)
-    st = init_state(len(PRNS), cp0, dop0)
-    cfg = dataclasses.replace(_torch_cfg(in_kernel_scan=True), **change)
-    with pytest.raises(NotImplementedError):
-        track_block(st, torch.as_tensor(epochs),
-                    torch.as_tensor(upsampled_code_doubled(table)),
-                    T_PLAN, cfg)
+# K1's modes beyond the default loop (pallas_track_scan.py :613-622,
+# :660-712, :738-745, :774-775, :791-794, :834-835)
+MODES = {
+    "coherent_bit_vote": dict(coherent_bit_vote=True),
+    "coherent_pll": dict(coherent_pll=True),
+    "coherent_pll_ext4": dict(coherent_pll=True, pll_ext_bits=4),
+    "emit_correlators": dict(emit_correlators=True),
+}
+MODE_EPOCHS = 90      # tests/test_pallas_scan.py _run_both's size
+
+
+def _assert_mode_exercised(mode, st_ref, out_ref):
+    """The scenario must reach the branch the mode adds."""
+    if mode == "coherent_pll_ext4":
+        assert np.asarray(st_ref.ext_bit_cnt).max() > 0
+    if mode != "emit_correlators":
+        assert np.asarray(out_ref.period_sync_ok).any(), "never synced"
+
+
+def _assert_el_match(out_ref, out):
+    """E/L diagnostics under the I/Q tolerance of _assert_outputs_match."""
+    for f in ("ie", "qe", "il", "ql"):
+        want = np.asarray(getattr(out_ref, f))
+        assert want.shape == (MODE_EPOCHS, len(PRNS)), f
+        np.testing.assert_allclose(np.asarray(getattr(out, f)), want,
+                                   rtol=2e-2, atol=2.0, err_msg=f)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_kernel_plain_version_mode_matches_jax_kernel(mode):
+    """track_scan_reference in each of K1's other modes against the JAX
+    Pallas kernel in interpret mode in the same mode, on
+    test_pallas_scan's 8-channel scenario, with its tolerances."""
+    change = MODES[mode]
+    epochs, table, cp0, dop0 = _setup(MODE_EPOCHS)
+    u2 = upsampled_code_doubled(table)
+    jcfg = _jax_cfg(pll_bad_state_threshold=10**6, **change)
+    st_ref, out_ref = track_block_pallas(
+        j_init_state(len(PRNS), cp0, dop0), jnp.asarray(epochs),
+        jnp.asarray(u2), PLAN, jcfg, interpret=True)
+    cfg = _torch_cfg(in_kernel_scan=True, pll_bad_state_threshold=10**6,
+                     **change)
+    calls = ts.track_scan_reference.calls
+    st, out = track_block(init_state(len(PRNS), cp0, dop0),
+                          torch.as_tensor(epochs), torch.as_tensor(u2),
+                          T_PLAN, cfg)
+    assert ts.track_scan_reference.calls == calls + 1
+    _assert_outputs_match(out_ref, out)
+    _assert_states_match(st_ref, st)
+    _assert_mode_exercised(mode, st_ref, out_ref)
+    if mode == "emit_correlators":
+        _assert_el_match(out_ref, out)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_track_block_mode_matches_jax(mode):
+    """The per-epoch reference scan (fractional replica, atan2 Costas on
+    both sides) in each mode against the JAX track_block."""
+    change = MODES[mode]
+    epochs, table, cp0, dop0 = _setup(MODE_EPOCHS)
+    st_ref, out_ref = j_track_block(
+        j_init_state(len(PRNS), cp0, dop0), jnp.asarray(epochs),
+        jnp.asarray(table), PLAN,
+        _jax_cfg(pll_bad_state_threshold=10**6, **change))
+    st, out = track_block(init_state(len(PRNS), cp0, dop0),
+                          torch.as_tensor(epochs), torch.as_tensor(table),
+                          T_PLAN,
+                          _torch_cfg(pll_bad_state_threshold=10**6, **change))
+    _assert_outputs_match(out_ref, out)
+    _assert_states_match(st_ref, st)
+    _assert_mode_exercised(mode, st_ref, out_ref)
+    if mode == "emit_correlators":
+        _assert_el_match(out_ref, out)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_host_build_mode_matches_plain_version(mode):
+    """The g++ build of track_epoch.cuh against the plain version in each
+    mode: integer decisions, integer state and the watchdog window
+    exactly; the floats (E/L slots included) to the order of the
+    2046-sample float32 sums."""
+    epochs, table, cp0, dop0 = _setup(MODE_EPOCHS)
+    u2 = torch.as_tensor(upsampled_code_doubled(table))
+    cfg = _torch_cfg(pll_bad_state_threshold=10**6, **MODES[mode])
+    ps0 = ts.state_from_track_state(init_state(len(PRNS), cp0, dop0))
+    x = torch.as_tensor(epochs)
+    ps_h, out_h = ts.track_scan_host(ps0, x, u2, T_PLAN, cfg)
+    ps_r, out_r = ts.track_scan_reference(ps0, x, u2, T_PLAN, cfg)
+    assert out_h.shape == out_r.shape == (MODE_EPOCHS, ts._nout(cfg),
+                                          len(PRNS))
+    assert torch.equal(ps_h.i32, ps_r.i32)
+    assert torch.equal(ps_h.win, ps_r.win)
+    for slot in (4, 5, 6, 7, 9):        # integer decision slots
+        assert torch.equal(out_h[:, slot], out_r[:, slot]), slot
+    float_slots = [0, 1] + list(range(ts.NOUT, out_r.shape[1]))
+    np.testing.assert_allclose(out_h[:, float_slots].numpy(),
+                               out_r[:, float_slots].numpy(),
+                               rtol=1e-4, atol=1e-2)
+    np.testing.assert_allclose(out_h[:, 3].numpy(), out_r[:, 3].numpy(),
+                               atol=1e-2)
+    # the K-bit accumulators add whole-bit sums of either sign: their
+    # error follows the terms, not the total (test_pallas_scan's bound)
+    np.testing.assert_allclose(ps_h.f32[14:].numpy(), ps_r.f32[14:].numpy(),
+                               rtol=2e-2, atol=10.0)
+    assert out_r[:, 4].any(), "scenario never produced a nav bit"
+    if mode == "coherent_pll_ext4":
+        assert ps_r.i32[13].max() > 0 or ps_r.f32[14].abs().max() > 0
 
 
 def test_upsampled_code_matches_jax():
