@@ -10,6 +10,8 @@ before the result line):
    all started together (build seconds and ptxas lines): the tracking
    scan (K1), the per-epoch E/P/L correlator (K2), the correlator-bank
    probe (P5), the epoch-cost probes (P6-P8) and the roll probes (P1-P4);
+   fails unless ptxas reports all 8 instantiations of K1's
+   track_scan_kernel with 0 bytes of stack frame and no spills;
 3. K1 vs its plain version on the card: the tracking scan on 32 channels
    (PRNs 1-32 at 48 dBHz, seeded Doppler and code phase, 3 codes per
    bit) over 1000 epochs, and on the main path's 4-channel shape, held to
@@ -17,13 +19,17 @@ before the result line):
    tests/test_pallas_scan.py:68-117 and exact integer decisions (each
    channel up to its first prompt-sign decision that lies within float32
    summation error of zero, see MARGINAL_IP); a 500 + 500 split must
-   equal the full run; median block times from CUDA events (the kernel
-   over 20 back-to-back launches); then K1 in each of its other modes
-   (coherent_bit_vote, coherent_pll, coherent_pll with pll_ext_bits = 5,
-   emit_correlators) on the 32-channel scenario under the same rules, the
-   E/L slots under the I/Q tolerance, with its block time in each, and
-   coherent_bit_vote also at the main path's 4 channels (phase 4b's
-   instantiation at its shape);
+   equal the full run; 256 channels (the 32 channels' state planes and
+   code rows tiled 8 times, so K1 groups G > 1 channels per block) must
+   equal the 32-channel run channel for channel (c against c mod 32),
+   bit for bit, and hold to the plain version; median block times from
+   CUDA events (the kernel over 20 back-to-back launches) at 4, 32, 128
+   and 256 channels, with each one's G; then K1 in each of its other
+   modes (coherent_bit_vote, coherent_pll, coherent_pll with
+   pll_ext_bits = 5, emit_correlators) on the 32-channel scenario under
+   the same rules, the E/L slots under the I/Q tolerance, with its block
+   time in each, and coherent_bit_vote also at the main path's 4 channels
+   (phase 4b's instantiation at its shape);
 4. K1 main path: ``Receiver.run`` on the card from cold start to a
    position fix on a 29 s, 4-satellite capture with real 20 ms nav bits
    at 48 dBHz; the fix must be within 500 m of the planted position, and
@@ -129,9 +135,24 @@ def build():
           " s wall (one nvcc each, in parallel)")
     for name in libs:
         info = kernel_lib.build_info[name]
-        print(f"[build] {name} built in {info['seconds']:.2f} s")
+        print(f"[build] {name} built in {info['seconds']:.2f} s"
+              + (" (cached)" if info["cached"] else ""))
         for line in info["log"].splitlines():
             print(f"[build]   {line}")
+    k1 = kernel_lib.ptxas_report(kernel_lib.build_info["track_scan_cuda"]
+                                 ["log"], "track_scan_kernel")
+    bad = [k for k in k1 if k["stack"] or k["spill_stores"]
+           or k["spill_loads"]]
+    if len(k1) != 8 or bad:
+        fail(f"K1: ptxas reports {len(k1)} of 8 track_scan_kernel "
+             f"instantiations, {len(bad)} with a stack frame or spills: {bad}")
+    regs = sorted({k["registers"] for k in k1})
+    print(f"[build] K1: all 8 track_scan_kernel instantiations with 0 bytes "
+          f"of stack frame and no spills; registers {regs}")
+    return {"stack_bytes": max(k["stack"] for k in k1),
+            "spill_bytes": max(k["spill_stores"] + k["spill_loads"]
+                               for k in k1),
+            "registers": max(regs)}
 
 
 # The H100 SXM data sheet's peaks at 700 W (dense, without sparsity)
@@ -301,7 +322,7 @@ def kernel_vs_plain():
 
     from stm32f4_sdr_gps_torch.config import BASEBAND_PLAN, TrackConfig
     from stm32f4_sdr_gps_torch.ops import track_scan as ts
-    from stm32f4_sdr_gps_torch.probes.scan_time import CIB, k1_scenario
+    from stm32f4_sdr_gps_torch.probes.scan_time import CIB, k1_scenario, tiled
 
     plan, cib = BASEBAND_PLAN, CIB
     t0 = time.perf_counter()
@@ -342,17 +363,41 @@ def kernel_vs_plain():
                                    "K1 coherent_bit_vote 4 ch x 1000 epochs",
                                    coherent=True))
 
+    # 256 channels: the 32 tiled 8 times, G > 1 channels per block; every
+    # channel must be its 32-channel original, bit for bit
+    groups = {c: ts.channels_per_block(c) for c in (4, 32, 128, 256)}
+    if groups[4] != 1 or groups[32] != 1 or groups[256] < 2:
+        fail(f"K1 channels per block {groups}: want 1 at 4 and 32, > 1 at "
+             "256")
+    big, u2_256 = tiled(ps0, u2, 256)
+    ps_kb, out_kb = ts.track_scan_cuda(big, x, u2_256, plan, cfg)
+    torch.cuda.synchronize()
+    if not (torch.equal(out_kb, out_k.repeat(1, 1, 8))
+            and all(torch.equal(a, b.repeat(1, 8))
+                    for a, b in zip(ps_kb, ps_k))):
+        fail("K1 256 ch: a channel differs from its 32-channel original")
+    print(f"[kernel] 256 ch (G = {groups[256]}) == the 32-channel run tiled "
+          "8 times, bit for bit")
+    ps_rb, out_rb = ts.track_scan_reference(big, x, u2_256, plan, cfg)
+    torch.cuda.synchronize()
+    err256 = _compare_scan(ps_kb, out_kb, ps_rb, out_rb,
+                           "K1 256 ch x 1000 epochs")
+
     times = {}
-    for label, state, table in (("32ch", ps0, u2), ("4ch", sub, u2_4)):
+    for c in (4, 32, 128, 256):
+        state, table = tiled(ps0, u2, c)
         ts.track_scan_cuda(state, x, table, plan, cfg)       # warm-up
         k_ms = _median_ms(
             lambda: ts.track_scan_cuda(state, x, table, plan, cfg), 5, 20)
-        p_ms = _median_ms(
-            lambda: ts.track_scan_reference(state, x, table, plan, cfg), 3, 1)
-        times[label] = (k_ms, p_ms)
-        print(f"[kernel] {label} x 1000 epochs: kernel median {k_ms:.4f} ms"
-              f", plain version median {p_ms:.2f} ms per block "
-              f"(CUDA events)")
+        p_ms = (_median_ms(lambda: ts.track_scan_reference(
+            state, x, table, plan, cfg), 3, 1) if c <= 32 else None)
+        times[c] = {"G": groups[c], "ms": k_ms, "plain_ms": p_ms,
+                    "bound": k1_bound(1000, c)}
+        print(f"[kernel] {c} ch x 1000 epochs (G = {groups[c]}): kernel "
+              f"median {k_ms:.4f} ms"
+              + (f", plain version median {p_ms:.2f} ms" if p_ms else "")
+              + f" per block (CUDA events); bound {times[c]['bound'][0]:.4f}"
+              f" ms ({times[c]['bound'][1]})")
     modes = {}
     for mode, change in K1_MODES.items():
         mcfg = TrackConfig(codes_in_bit=cib, **change)
@@ -371,7 +416,7 @@ def kernel_vs_plain():
               f"32 ch; {synced} of 32 channels synced at the end, K-bit "
               f"count {ps_r.i32[13].tolist()}")
         modes[mode] = {"max_abs_err": err, "ms_32ch": k_ms}
-    return max(err32, err4), times, (st, x, u2), modes
+    return max(err32, err4, err256), times, (st, x, u2), modes
 
 
 # K1's modes beyond the default loop (pallas_track_scan.py :613-622,
@@ -458,24 +503,27 @@ def _run_receiver(sc, track, label):
     if not (np.all(np.isfinite(sol.rr)) and err < 500.0 and vel < 10.0):
         fail(f"{label}: fix error {err:.1f} m / |vel| {vel:.2f} m/s out of "
              "bounds")
-    return report, rx, counts, tracked
+    return report, rx, counts, tracked, wall
 
 
 def main_path(sc, label="main", **track):
     """K1's main path: the TrackConfig (default, or with ``track``) on the
-    card; returns K1's launches and the final fix error (m)."""
+    card; returns K1's launches, the final fix error (m), the wall time
+    (s) and the mean ``track`` stage per block (ms)."""
     import numpy as np
 
     from stm32f4_sdr_gps_torch.config import TrackConfig
 
-    report, rx, counts, _ = _run_receiver(sc, TrackConfig(**track), label)
+    report, rx, counts, _, wall = _run_receiver(sc, TrackConfig(**track),
+                                                label)
     blocks = rx.profiler.stages["track"].calls
     if (counts["track_scan"] < blocks or counts["track_scan_plain"]
             or counts["epl"] or counts["epl_plain"]):
         fail(f"{label} path bypassed the tracking-scan kernel: {counts} for "
              f"{blocks} blocks")
     err = float(np.linalg.norm(report.solutions[-1].rr - sc.rr_true))
-    return counts["track_scan"], err
+    return (counts["track_scan"], err, wall,
+            rx.profiler.stages["track"].mean_s * 1e3)
 
 
 WRAP_EDGES = (0.0, 0.2, 0.49, 0.51, 1022.6, 1022.99)
@@ -586,7 +634,7 @@ def half_chip_path(sc):
     """The slice's main path: the per-epoch half-chip loop with K2."""
     from stm32f4_sdr_gps_torch.config import TrackConfig
 
-    _, _, counts, tracked = _run_receiver(
+    _, _, counts, tracked, _ = _run_receiver(
         sc, TrackConfig(use_pallas=True, in_kernel_scan=False), "half-chip")
     if (counts["epl"] != tracked or counts["epl_plain"]
             or counts["track_scan"] or counts["track_scan_plain"]):
@@ -911,7 +959,7 @@ def main():
         fail(f"stm32f4_sdr_gps_torch imported from {pkg_dir}, not from this "
              "checkout")
     name, smi = card()
-    build()
+    k1_ptxas = build()
     k1_err, k1_times, scenario, k1_modes = kernel_vs_plain()
 
     from stm32f4_sdr_gps_torch.signal.scenarios import fix_scenario
@@ -921,8 +969,9 @@ def main():
     print(f"[main] simulated {len(sc.samples) / 2.046e6:.1f} s of "
           f"{len(sc.prns)}-satellite baseband ({sc.samples.nbytes / 1e6:.0f}"
           f" MB) in {time.perf_counter() - t0:.1f} s")
-    k1_launches, fix_err = main_path(sc)
-    cbv_launches, cbv_err = main_path(sc, "main-cbv", coherent_bit_vote=True)
+    k1_launches, fix_err, wall, track_ms = main_path(sc)
+    cbv_launches, cbv_err, cbv_wall, cbv_track_ms = main_path(
+        sc, "main-cbv", coherent_bit_vote=True)
     k2_err, k2_times = epl_vs_plain()
     loop_err = closed_loop(scenario)
     k2_launches = half_chip_path(sc)
@@ -930,7 +979,6 @@ def main():
     forest_res = forest()
     roll_res, roll_errs, roll_launches = roll_probes()
     src = "stm32f4_sdr_gps_torch/csrc/"
-    k1_b4, k1_b32 = k1_bound(1000, 4), k1_bound(1000, 32)
     k2_b4, k2_b32 = k2_bound(4), k2_bound(32)
 
     def roll_entry(name, wrapper, cases, replaces):
@@ -953,19 +1001,27 @@ def main():
         "replaces": "stm32f4_sdr_gps_tpu/ops/pallas_track_scan.py:179",
         "launches": k1_launches,
         "max_abs_err": k1_err,
-        "ms": k1_times["4ch"][0],
-        "plain_ms": k1_times["4ch"][1],
-        "bound_ms": k1_b4[0],
-        "bound_by": k1_b4[1],
+        "ms": k1_times[4]["ms"],
+        "plain_ms": k1_times[4]["plain_ms"],
+        "bound_ms": k1_times[4]["bound"][0],
+        "bound_by": k1_times[4]["bound"][1],
         "library_ms": None,
-        "ms_32ch": k1_times["32ch"][0],
-        "plain_ms_32ch": k1_times["32ch"][1],
-        "bound_ms_32ch": k1_b32[0],
-        "bound_by_32ch": k1_b32[1],
+        "G": k1_times[4]["G"],
+        **{f"{k}_{c}ch": v for c in (32, 128, 256)
+           for k, v in (("G", k1_times[c]["G"]), ("ms", k1_times[c]["ms"]),
+                        ("plain_ms", k1_times[c]["plain_ms"]),
+                        ("bound_ms", k1_times[c]["bound"][0]),
+                        ("bound_by", k1_times[c]["bound"][1]))
+           if v is not None},
+        **k1_ptxas,
         "fix_error_m": fix_err,
+        "main_path_wall_s": wall,
+        "main_path_track_ms_per_block": track_ms,
         "modes": k1_modes,
         "coherent_bit_vote_path": {"launches": cbv_launches,
-                                   "fix_error_m": cbv_err},
+                                   "fix_error_m": cbv_err,
+                                   "wall_s": cbv_wall,
+                                   "track_ms_per_block": cbv_track_ms},
     }, {
         "name": "epl",
         "route": "cuda",

@@ -1,12 +1,16 @@
 // Per-channel arithmetic of the tracking-scan kernel (track_scan.cu) and
 // of the per-epoch E/P/L kernel (epl.cu), which share the correlator
-// (halfchip_shift, epl_sample) and the block reduction (block_sum6).
+// (halfchip_shift, epl_sample); epl.cu and the probes corr_bank.cu and
+// forest.cu also use the block reduction block_sum6.  The tracking scan
+// has its own reduction (warp_sum6, tree_sum) and launch shape (K1_THREADS,
+// k1_channels_per_block).
 //
-// Everything but block_sum6 is __host__ __device__: nvcc builds it into
-// the Hopper kernels, and g++ builds the same source (with -D__host__=
-// -D__device__=) into a host library (kernels_host.cpp) that the CPU tests
-// hold against the plain torch versions, ops/track_scan.py:
-// track_scan_reference and ops/epl.py:epl_correlate_halfchip.
+// Everything but the warp and block reductions is __host__ __device__:
+// nvcc builds it into the Hopper kernels, and g++ builds the same source
+// (with -D__host__= -D__device__=) into a host library (kernels_host.cpp)
+// that the CPU tests hold against the plain torch versions,
+// ops/track_scan.py:track_scan_reference and ops/epl.py:
+// epl_correlate_halfchip.
 //
 // One call of epoch_update is one 1 ms loop closure of one channel: DLL,
 // polynomial Costas PLL, FLL, false-lock watchdog with its integer LCG
@@ -23,6 +27,11 @@
 // flags they cost the default loop ~7 % per epoch on the H100, PERF.md).
 // The Params flags say which instantiation a launch takes
 // (dispatch_mode).
+//
+// The channel state (ChanState) is indexed only by compile-time
+// constants, so the tracking scan keeps all of it in registers: the
+// watchdog's sign window is two bit masks, not an array indexed by the
+// run-time window length.
 //
 // Floating point: both builds run without fused multiply-add contraction
 // (nvcc -fmad=false, g++ -ffp-contract=off), so every float operation is
@@ -55,6 +64,34 @@ constexpr int NOUT_EL = 15;    // ... with the E/L slots (emit_correlators)
 constexpr int MAX_WIN = 32;    // largest watchdog window the kernel takes
 constexpr int NFP = 22;        // float parameters (kernel_params order)
 constexpr int NIP = 10;        // int parameters
+
+// The tracking scan's launch shape: K1_THREADS threads per channel (each
+// takes the staged samples k = tid + j * K1_THREADS, j < SP / K1_THREADS,
+// and one warp of them also runs the loop update), G channels per block of
+// G * K1_THREADS threads, at most K1_GROUP_MAX.  A compile-time constant,
+// so a channel's per-thread samples and summation order never depend on
+// the channel count; 128 is the fastest of 64-512 (PERF.md).
+constexpr int K1_THREADS = 128;
+constexpr int K1_WARPS = K1_THREADS / 32;
+constexpr int K1_BLOCK_MAX = 512;
+constexpr int K1_GROUP_MAX = K1_BLOCK_MAX / K1_THREADS;
+constexpr int SP = 2048;       // the epoch as the tracking scan stages it,
+                               // zero-padded to a multiple of K1_THREADS
+// whole warps that divide the staged epoch; at least two warps a channel
+// (one of them stages epochs while another runs the update), and a named
+// barrier for each channel of a block
+static_assert(K1_THREADS % 32 == 0 && SP % K1_THREADS == 0 &&
+              K1_WARPS >= 2 && K1_GROUP_MAX < 16, "K1_THREADS");
+
+// G for C channels on a card with `sms` SMs: one channel per block while
+// the blocks fit on the SMs (the lowest latency per epoch); past that, the
+// fewest channels per block that fit, up to K1_GROUP_MAX, so G channels
+// share each staged epoch.
+__host__ __device__ inline int k1_channels_per_block(int C, int sms) {
+    if (C <= sms) return 1;
+    const int g = (C + sms - 1) / sms;
+    return g < K1_GROUP_MAX ? g : K1_GROUP_MAX;
+}
 
 // f32 state rows (ops/track_scan.py _F32_FIELDS)
 enum F32Field {
@@ -161,10 +198,13 @@ __host__ __device__ inline Params params_from_arrays(const float* fp,
     return p;
 }
 
+// The watchdog's prompt-sign window of p.win entries (-1, +1, or 0 for a
+// slot not filled yet, as track/state.py init_state leaves it): bit k of
+// wpos / wneg is set where entry k is +1 / -1; bit win-1 is the newest.
 struct ChanState {
     float f[NF32];
     int i[NI32];
-    int win[MAX_WIN];   // watchdog prompt-sign window, [win-1] newest
+    uint32_t wpos, wneg;
     int rem;            // (epoch - last_swap) mod cib, carried
     int wcnt;           // epoch mod win, carried
 };
@@ -181,19 +221,38 @@ __host__ __device__ inline float float_mod(float a, float b) {
     return r;
 }
 
+// float_mod(a, CODE_LENGTH), the code phase's wrap.  For a in [0, 3 *
+// 1023) the quotient is 0, 1 or 2 and a - q * 1023 is exact (Sterbenz), so
+// the branch gives fmodf's exact result without its loop.
+__host__ __device__ inline float code_phase_mod(float a) {
+    const float len = (float)CODE_LENGTH;
+    if (a >= 0.0f && a < 3.0f * len)
+        return a >= 2.0f * len ? a - 2.0f * len : (a >= len ? a - len : a);
+    return float_mod(a, len);
+}
+
 __host__ __device__ inline float wrap_half(float x) { return x - rintf(x); }
 
 __host__ __device__ inline float sign_f(float x) {
     return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
 }
 
-// Load channel c of the (16, C) / (14, C) / (W, C) state planes.
+// Load channel c of the (16, C) / (14, C) / (W, C) state planes; the
+// window plane's entries are packed into the two masks.
 __host__ __device__ inline void load_state(ChanState& s, const float* f32s,
                                            const int* i32s, const int* wins,
                                            int c, int C, const Params& p) {
+#pragma unroll
     for (int k = 0; k < NF32; ++k) s.f[k] = f32s[k * C + c];
+#pragma unroll
     for (int k = 0; k < NI32; ++k) s.i[k] = i32s[k * C + c];
-    for (int k = 0; k < p.win; ++k) s.win[k] = wins[k * C + c];
+    s.wpos = 0u;
+    s.wneg = 0u;
+    for (int k = 0; k < p.win; ++k) {
+        const int v = wins[k * C + c];
+        s.wpos |= (v > 0 ? 1u : 0u) << k;
+        s.wneg |= (v < 0 ? 1u : 0u) << k;
+    }
     s.rem = floor_mod(s.i[EPOCH] - s.i[LAST_SWAP], p.cib);
     s.wcnt = floor_mod(s.i[EPOCH], p.win);
 }
@@ -201,9 +260,43 @@ __host__ __device__ inline void load_state(ChanState& s, const float* f32s,
 __host__ __device__ inline void store_state(const ChanState& s, float* f32s,
                                             int* i32s, int* wins, int c,
                                             int C, const Params& p) {
+#pragma unroll
     for (int k = 0; k < NF32; ++k) f32s[k * C + c] = s.f[k];
+#pragma unroll
     for (int k = 0; k < NI32; ++k) i32s[k * C + c] = s.i[k];
-    for (int k = 0; k < p.win; ++k) wins[k * C + c] = s.win[k];
+    for (int k = 0; k < p.win; ++k) {
+        const bool pos = (s.wpos >> k) & 1u, neg = (s.wneg >> k) & 1u;
+        wins[k * C + c] = pos ? 1 : (neg ? -1 : 0);
+    }
+}
+
+__host__ __device__ inline int popcount32(uint32_t v) {
+#ifdef __CUDA_ARCH__
+    return __popc(v);
+#else
+    return __builtin_popcount(v);
+#endif
+}
+
+// One epoch of the false-lock watchdog's window (tracking.c:261-327) on
+// the masks: returns the sign transitions of the window after sgn (+1 or
+// -1) shifts in (sgn against the newest entry, then the pairs (k-1, k) for
+// k = 2 .. win-1), and shifts sgn in unless `hold`.  Two entries differ
+// where either mask differs, so a 0 (unfilled) entry differs from both
+// signs and equals another 0.
+__host__ __device__ inline int watchdog_step(uint32_t& wpos, uint32_t& wneg,
+                                             int sgn, int win, bool hold) {
+    const uint32_t top = 1u << (win - 1);
+    const bool newest_same = (sgn > 0 ? wpos : wneg) & top;
+    // bit k: entry k differs from entry k + 1
+    const uint32_t diff = (wpos ^ (wpos >> 1)) | (wneg ^ (wneg >> 1));
+    const uint32_t pairs = (top - 1u) & ~1u;          // bits 1 .. win-2
+    const int trans = (newest_same ? 0 : 1) + popcount32(diff & pairs);
+    if (!hold) {
+        wpos = (wpos >> 1) | (sgn > 0 ? top : 0u);
+        wneg = (wneg >> 1) | (sgn > 0 ? 0u : top);
+    }
+    return trans;
 }
 
 // Integer half-chip shift m = floor(2 * code_phase) mod S, 0 folded to S,
@@ -265,7 +358,50 @@ __device__ inline void block_sum6(float acc[6], float (*s_part)[6]) {
         }
     }
 }
+
+// The tracking scan's warp step: the six partials summed over the warp
+// as a transposed butterfly.  The six, padded with two zeros to eight,
+// are halved at each of the levels off = 16, 8, 4: of lanes l and l ^ off
+// the one without bit off keeps the lower half of what it carries, the
+// other the upper half, and each adds what its partner sends (keep +
+// received); two plain butterfly levels (off = 2, 1) follow.  Lane 4j
+// (and 4j + 1 .. 4j + 3) ends with the warp's total of sum j: 9 shuffles,
+// against 30 for a butterfly over each sum (kernels_host.cpp k1_sums
+// reproduces this order).
+__device__ inline float warp_sum6(const float acc[6]) {
+    const unsigned lane = threadIdx.x & 31u;
+    const float v[8] = {acc[0], acc[1], acc[2], acc[3], acc[4], acc[5],
+                        0.f, 0.f};
+    const bool hi16 = lane & 16u, hi8 = lane & 8u, hi4 = lane & 4u;
+    float r4[4], r2[2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+        r4[i] = (hi16 ? v[4 + i] : v[i]) +
+                __shfl_xor_sync(0xffffffffu, hi16 ? v[i] : v[4 + i], 16);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+        r2[i] = (hi8 ? r4[2 + i] : r4[i]) +
+                __shfl_xor_sync(0xffffffffu, hi8 ? r4[i] : r4[2 + i], 8);
+    float r = (hi4 ? r2[1] : r2[0]) +
+              __shfl_xor_sync(0xffffffffu, hi4 ? r2[0] : r2[1], 4);
+    r += __shfl_xor_sync(0xffffffffu, r, 2);
+    r += __shfl_xor_sync(0xffffffffu, r, 1);
+    return r;
+}
 #endif
+
+// The tracking scan's cross-warp step: the sum of v[0 .. N-1] as a
+// pairwise tree, v[w] + v[w + s] for s = 1, 2, 4, ... and w a multiple of
+// 2s with w + s < N.
+template <int N>
+__host__ __device__ inline float tree_sum(float v[N]) {
+#pragma unroll
+    for (int s = 1; s < N; s *= 2) {
+#pragma unroll
+        for (int w = 0; w + s < N; w += 2 * s) v[w] = v[w] + v[w + s];
+    }
+    return v[0];
+}
 
 // Costas discriminator atan2(qp*sign(ip), |ip|)/pi in half-cycles, as the
 // JAX kernel computes it (pallas_track_scan.py:238-254): octant fold and a
@@ -329,7 +465,7 @@ __host__ __device__ inline void epoch_update(ChanState& s, const float sums[6],
     // the NCO accumulators advance by one fused multiply-add each (fmaf),
     // as the JAX reference's XLA lowering computes them
     const float unwrapped = fmaf(code_freq, (float)S, cp) + ddelta;
-    const float new_cp = float_mod(unwrapped, (float)CODE_LENGTH);
+    const float new_cp = code_phase_mod(unwrapped);
     const float nominal = cp + p.cps * (float)S;
     const bool wrapped = fabsf(unwrapped - nominal) > 0.5f * CODE_LENGTH;
 
@@ -352,8 +488,8 @@ __host__ __device__ inline void epoch_update(ChanState& s, const float sums[6],
     // completed bit, on the bit's coherent prompt sums (or, with
     // ext_bits > 1, on the sum of ext_bits sign-decided bit vectors), and
     // the per-epoch PLL and FLL stand still.  The K-bit accumulator planes
-    // are read and written only in the PLL_EXT mode: the state lives in
-    // local memory, and the other modes leave the planes as they are.
+    // are read and written only in the PLL_EXT mode; the other modes leave
+    // them as they are.
     float phase_err_store = perr;
     if constexpr (M::pll != PLL_EPOCH) {
         const float bip = f[BIT_IP], bqp = f[BIT_QP];
@@ -400,13 +536,8 @@ __host__ __device__ inline void epoch_update(ChanState& s, const float sums[6],
     // window after this epoch's sign shifts in; under coherent_pll the
     // window and its counters stand still while synced
     const int sgn = ip > 0.0f ? 1 : -1;
-    int trans = sgn != s.win[p.win - 1] ? 1 : 0;
-    for (int k = 2; k < p.win; ++k) trans += s.win[k] != s.win[k - 1] ? 1 : 0;
     const bool hold = M::pll != PLL_EPOCH && in_sync;
-    if (!hold) {
-        for (int k = 0; k < p.win - 1; ++k) s.win[k] = s.win[k + 1];
-        s.win[p.win - 1] = sgn;
-    }
+    const int trans = watchdog_step(s.wpos, s.wneg, sgn, p.win, hold);
     const bool wend = wcnt == p.win - 1;
     int bad2 = i[BAD_CNT];
     if (wend) bad2 = trans > 1 ? (bad2 + 1 < 10 ? bad2 + 1 : 10)

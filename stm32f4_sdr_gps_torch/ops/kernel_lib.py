@@ -83,7 +83,9 @@ def _inputs(sources: list, csrc: str) -> list:
 def _build(name: str, compiler: list, sources: list, csrc: str = CSRC,
            build_dir: str = BUILD_DIR) -> str:
     """Compile ``sources`` (file names in ``csrc``) with ``compiler`` into
-    ``build_dir``/lib<name>_<hash>.so unless it is already there."""
+    ``build_dir``/lib<name>_<hash>.so unless it is already there.  The
+    compiler's output is kept beside it (``.log``), so ``build_info``
+    has the ptxas lines of a cached library too."""
     h = hashlib.sha256(" ".join(compiler).encode())
     for p in _inputs(sources, csrc):
         h.update(os.path.basename(p).encode())
@@ -91,7 +93,11 @@ def _build(name: str, compiler: list, sources: list, csrc: str = CSRC,
             h.update(f.read())
     lib = os.path.join(build_dir, f"lib{name}_{h.hexdigest()[:16]}.so")
     if os.path.exists(lib):
-        build_info[name] = {"seconds": 0.0, "log": "cached"}
+        log = ""
+        if os.path.exists(lib + ".log"):
+            with open(lib + ".log") as f:
+                log = f.read()
+        build_info[name] = {"seconds": 0.0, "cached": True, "log": log}
         return lib
     os.makedirs(build_dir, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
@@ -104,26 +110,55 @@ def _build(name: str, compiler: list, sources: list, csrc: str = CSRC,
         if res.returncode != 0:
             raise RuntimeError(
                 f"building {name} failed:\n{res.stdout}\n{res.stderr}")
+        log = (res.stdout + res.stderr).strip()
+        with open(tmp + ".log", "w") as f:
+            f.write(log)
+        os.replace(tmp + ".log", lib + ".log")
         os.replace(tmp, lib)
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    build_info[name] = {"seconds": time.perf_counter() - t0,
-                        "log": (res.stdout + res.stderr).strip()}
+        for path in (tmp, tmp + ".log"):
+            if os.path.exists(path):
+                os.remove(path)
+    build_info[name] = {"seconds": time.perf_counter() - t0, "cached": False,
+                        "log": log}
     return lib
 
 
-def _load(name: str, compiler: list, sources: list,
-          signatures: dict) -> ctypes.CDLL:
+def _load(name: str, compiler: list, sources: list, signatures: dict,
+          csrc: str = CSRC) -> ctypes.CDLL:
     """Build and load a library, and give each exported function in
     ``signatures`` (symbol -> ctypes argument types) its argument list;
     every function returns an int status."""
-    lib = ctypes.CDLL(_build(name, compiler, sources))
+    lib = ctypes.CDLL(_build(name, compiler, sources, csrc))
     for symbol, argtypes in signatures.items():
         fn = getattr(lib, symbol)
         fn.argtypes = argtypes
         fn.restype = _INT
     return lib
+
+
+def ptxas_report(log: str, kernel: str) -> list:
+    """For each entry function whose name contains ``kernel``, in the
+    ``ptxas -v`` lines of a build's log (``build_info[name]["log"]``), a
+    dict of its name, registers, stack frame bytes and spill bytes."""
+    report, cur = [], None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            cur = {"name": entry.group(1)} if kernel in entry.group(1) \
+                else None
+            if cur is not None:
+                report.append(cur)
+            continue
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+        if cur is not None and frame:
+            cur.update(stack=int(frame[1]), spill_stores=int(frame[2]),
+                       spill_loads=int(frame[3]))
+        regs = re.search(r"Used (\d+) registers", line)
+        if cur is not None and regs:
+            cur["registers"] = int(regs[1])
+    return report
 
 
 # x, u2, f32s, i32s, wins, out, T, C, fp, ip
@@ -146,11 +181,13 @@ _BARREL_ARGS = [_PTR] * 6 + [_INT]
 # nvcc on PATH costs more host time than the launch itself
 @functools.cache
 def cuda_lib() -> ctypes.CDLL:
-    """The tracking-scan kernel library (``track_scan_launch``), built
-    with nvcc for sm_90a at first use."""
+    """The tracking-scan kernel library (``track_scan_launch``,
+    ``track_scan_channels_per_block``), built with nvcc for sm_90a at
+    first use."""
     return _load("track_scan_cuda", [_nvcc()] + NVCC_FLAGS,
                  ["track_scan.cu"],
-                 {"track_scan_launch": _TRACK_SCAN_ARGS + [_PTR]})
+                 {"track_scan_launch": _TRACK_SCAN_ARGS + [_PTR],
+                  "track_scan_channels_per_block": [_INT]})
 
 
 @functools.cache
@@ -193,12 +230,17 @@ def roll_lib() -> ctypes.CDLL:
 @functools.cache
 def host_lib() -> ctypes.CDLL:
     """The host build of the kernels' arithmetic (``track_scan_host``,
+    ``k1_channels_per_block``, ``watchdog_host``, ``code_phase_mod_host``,
     ``epl_host``, ``forest_chain_host``, ``forest_constructs_host``,
     ``forest_layout_host``, ``roll_rows_host``, ``barrel_host``), built
     with g++ at first use."""
     return _load("kernels_host", ["g++"] + GXX_FLAGS,
                  ["kernels_host.cpp", "forest_host.cpp", "roll_host.cpp"],
                  {"track_scan_host": _TRACK_SCAN_ARGS,
+                  "k1_channels_per_block": [_INT, _INT],
+                  # wins, sgn, hold, trans, win, n
+                  "watchdog_host": [_PTR] * 4 + [_INT, _INT],
+                  "code_phase_mod_host": [_PTR] * 3 + [_INT],
                   "epl_host": _EPL_ARGS,
                   "forest_chain_host": _CHAIN_ARGS,
                   "forest_constructs_host": _CONSTRUCTS_ARGS,

@@ -488,7 +488,8 @@ def track_scan_cuda(state: ScanState, epochs: torch.Tensor,
                     cfg: TrackConfig) -> tuple:
     """Launch the tracking-scan kernel (csrc/track_scan.cu) on the card.
 
-    Same contract as :func:`track_scan_reference`.  The input state is
+    Same contract as :func:`track_scan_reference`; the watchdog window's
+    entries are -1, 0 or +1, as the scans leave them.  The input state is
     left as it is: the kernel updates fresh copies of the planes in
     place.  ``track_scan_cuda.launches`` counts kernel launches."""
     from .kernel_lib import cuda_lib
@@ -499,6 +500,9 @@ def track_scan_cuda(state: ScanState, epochs: torch.Tensor,
     for name, t in (("epochs", epochs), ("u2", u2)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        # the kernel copies each epoch and each code row in 16-byte units
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     t_cnt, c = epochs.shape[0], u2.shape[0]
     f32, i32, win = (t.clone(memory_format=torch.contiguous_format)
                      for t in state)
@@ -524,13 +528,22 @@ def track_scan_cuda(state: ScanState, epochs: torch.Tensor,
 track_scan_cuda.launches = 0
 
 
+def channels_per_block(c: int, device=None) -> int:
+    """G, the channels per block that :func:`track_scan_cuda` launches
+    for ``c`` channels on ``device`` (the current card by default)."""
+    from .kernel_lib import cuda_lib
+
+    with torch.cuda.device(device):
+        return cuda_lib().track_scan_channels_per_block(c)
+
+
 def track_scan_host(state: ScanState, epochs: torch.Tensor,
                     u2: torch.Tensor, plan: SignalPlan,
                     cfg: TrackConfig) -> tuple:
     """The kernel's arithmetic built for the host with g++
-    (csrc/track_scan_host.cpp) on CPU tensors: the check of the CUDA
-    source on a machine without a GPU.  Same contract as
-    :func:`track_scan_reference`."""
+    (csrc/kernels_host.cpp) on CPU tensors, its sums added in the
+    kernel's order: the check of the CUDA source on a machine without a
+    GPU.  Same contract as :func:`track_scan_reference`."""
     from .kernel_lib import host_lib
 
     _check(state, epochs, u2, plan, cfg)

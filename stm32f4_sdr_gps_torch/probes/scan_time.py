@@ -6,13 +6,16 @@ of this repository, in turns.
 For each ROOT in the order given (parent, change, change, parent to
 compare two commits on one card), a fresh process imports
 ``stm32f4_sdr_gps_torch`` from ROOT, builds that checkout's tracking-scan
-kernel and times it in the default mode on :func:`k1_scenario` at 32 and
-at 4 channels: the median over 5 runs of 20 back-to-back launches, timed
-with CUDA events.  Prints one JSON line per ROOT and the card's
-``nvidia-smi`` name and power limit; exits 1 without a card.  Run as a
-script, the file imports the package only from ROOT, so it also times
-checkouts that predate it.  chip_smoke.py's phase 3 builds its K1
-scenario with :func:`k1_scenario` too.
+kernel and times it in the default mode on :func:`k1_scenario` at 32, 4,
+128 and 256 channels (the 128 and 256 by tiling the 32 channels' state
+planes and code rows 4 and 8 times, :func:`tiled`): the median over 5 runs
+of 20 back-to-back launches, timed with CUDA events, and the channels per
+block (G) where the checkout reports it.  Prints one JSON line per run
+and the card's ``nvidia-smi`` name and power limit; exits 1 without a
+card.  Run as a script, the file imports the package only from ROOT, so
+it also times checkouts that predate it.  chip_smoke.py and
+probes/scan_parts.py build their K1 scenarios with :func:`k1_scenario`
+and :func:`tiled` too.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import sys
 
 
 CIB = 3                       # codes per nav bit in the K1 scenario
+CHANNELS = (32, 4, 128, 256)  # the channel counts timed
 
 
 def k1_scenario(device):
@@ -58,6 +62,36 @@ def k1_scenario(device):
     return st, x, u2
 
 
+def tiled(ps, u2, c):
+    """The first ``c`` channels of the scan state ``ps`` (a ScanState of
+    the 32-channel scenario) and its code rows ``u2``, tiled as often as
+    ``c`` needs: channel j is channel j mod 32."""
+    reps = -(-c // u2.shape[0])
+    planes = [t.repeat(1, reps)[:, :c].contiguous() for t in ps]
+    return type(ps)(*planes), u2.repeat(reps, 1)[:c].contiguous()
+
+
+def _block_ms(launch) -> float:
+    """Median over 5 runs of 20 back-to-back launches, per launch (ms),
+    after 20 launches that warm the clocks."""
+    import torch
+
+    for _ in range(20):
+        launch()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            launch()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / 20)
+    return statistics.median(times)
+
+
 def _time_one(root: str) -> dict:
     root = os.path.abspath(root)
     sys.path.insert(0, root)
@@ -65,6 +99,7 @@ def _time_one(root: str) -> dict:
 
     import stm32f4_sdr_gps_torch as pkg
     from stm32f4_sdr_gps_torch.config import BASEBAND_PLAN, TrackConfig
+    from stm32f4_sdr_gps_torch.ops import kernel_lib
     from stm32f4_sdr_gps_torch.ops import track_scan as ts
 
     if os.path.dirname(os.path.dirname(os.path.abspath(pkg.__file__))) != root:
@@ -73,27 +108,13 @@ def _time_one(root: str) -> dict:
     cfg = TrackConfig(codes_in_bit=CIB)
     ps = ts.state_from_track_state(st)
     res = {"root": root}
-    for c in (32, 4):
-        sub = ts.ScanState(*(t[:, :c].contiguous() for t in ps))
-        table = u2[:c].contiguous()
-
-        def launch():
-            ts.track_scan_cuda(sub, x, table, BASEBAND_PLAN, cfg)
-
-        for _ in range(20):                        # warm the clocks
-            launch()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(5):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(20):
-                launch()
-            end.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(end) / 20)
-        res[f"ms_{c}ch"] = statistics.median(times)
+    lib = kernel_lib.cuda_lib() if hasattr(ts, "channels_per_block") else None
+    for c in CHANNELS:
+        sub, table = tiled(ps, u2, c)
+        res[f"ms_{c}ch"] = _block_ms(lambda: ts.track_scan_cuda(
+            sub, x, table, BASEBAND_PLAN, cfg))
+        if lib is not None:
+            res[f"G_{c}ch"] = lib.track_scan_channels_per_block(c)
     return res
 
 

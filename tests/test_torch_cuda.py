@@ -195,6 +195,45 @@ def test_kernel_split_equals_full(dev):
     np.testing.assert_array_equal(ps_f.win.cpu(), ps_b.win.cpu())
 
 
+@pytest.mark.parametrize("side", ["at", "above", "twice"])
+def test_kernel_grouping_matches_plain_version(dev, side):
+    """C at the card's SM count (one channel per block), one past it (two
+    channels per block, the last block half empty) and twice it plus 8
+    (three per block): the 8 channels tiled to C.  Every channel must
+    equal its 8-channel original bit for bit (grouping changes no
+    channel's arithmetic), and the run must hold to the plain version."""
+    from stm32f4_sdr_gps_torch.probes.scan_time import tiled
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    c = {"at": sms, "above": sms + 1, "twice": 2 * sms + 8}[side]
+    assert (ts.channels_per_block(c) == 1) == (side == "at")
+    cfg = TrackConfig(codes_in_bit=CIB, pll_bad_state_threshold=10**6)
+    ps0, x, u2 = _inputs(90, dev)
+    big, u2_big = tiled(ps0, u2, c)
+    ps_k, out_k = ts.track_scan_cuda(big, x, u2_big, PLAN, cfg)
+    ps_8, out_8 = ts.track_scan_cuda(ps0, x, u2, PLAN, cfg)
+    torch.cuda.synchronize()
+    idx = torch.arange(c, device=dev) % len(PRNS)
+    assert torch.equal(out_k, out_8[:, :, idx])
+    for a, b in zip(ps_k, ps_8):
+        assert torch.equal(a, b[:, idx])
+    ps_r, out_r = ts.track_scan_reference(big, x, u2_big, PLAN, cfg)
+    assert_scan_match(ps_k, out_k, ps_r, out_r)
+
+
+def test_scan_parts_builds_see_the_scan_inputs(dev):
+    """probes/scan_parts.py at 4 channels: every build compiles without a
+    stack frame or spills, and its checks hold (the replaying builds
+    reproduce the kernel's outputs or its recorded sums bit for bit)."""
+    from stm32f4_sdr_gps_torch.probes import scan_parts
+
+    records = scan_parts.run([4])
+    assert [r["build"] for r in records] == ["full"] + scan_parts.BUILDS
+    for r in records:
+        assert r["stack"] == 0 and r["spills"] == 0, r
+        assert r["ms"] > 0
+
+
 def test_receiver_runs_on_kernel(dev):
     """Receiver.run on the card (kernel tracking, device digest) on a
     compressed-bit 4-satellite capture: every channel tracks and decodes

@@ -47,7 +47,7 @@ def test_edit_builds_a_new_library(tmp_path, edited):
     first = build()
     assert _value(first) == 11
     assert build() == first
-    assert kernel_lib.build_info["probe"]["log"] == "cached"
+    assert kernel_lib.build_info["probe"]["cached"]
     old, new = EDITS[edited]
     (src / edited).write_text(FILES[edited].replace(old, new))
     second = build()
@@ -60,3 +60,49 @@ def test_each_library_binds_its_own_signatures():
     assert lib.epl_host.argtypes[-1] is ctypes.c_float
     assert len(lib.epl_host.argtypes) == 8
     assert len(lib.track_scan_host.argtypes) == 10
+
+
+# ptxas -v lines of one instantiation of the tracking scan, a function
+# without spills and one with, as nvcc prints them for sm_90a
+K1_ENTRY = ("_ZN4anon17track_scan_kernelIN5track4ModeILi0ELb0ELb0EEEEE"
+            "vPKfi")
+PTXAS_LOG = f"""ptxas info    : 1402 bytes gmem
+ptxas info    : Compiling entry function '{K1_ENTRY}' for 'sm_90a'
+ptxas info    : Function properties for {K1_ENTRY}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 102 registers, used 1 barriers
+ptxas info    : Compile time = 108.136 ms
+ptxas info    : Compiling entry function '_Z10epl_kernelPKfS0_' for 'sm_90a'
+ptxas info    : Function properties for _Z10epl_kernelPKfS0_
+    256 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers, 400 bytes cmem[0]
+"""
+
+
+def test_ptxas_report():
+    k1 = kernel_lib.ptxas_report(PTXAS_LOG, "track_scan_kernel")
+    assert k1 == [{"name": K1_ENTRY, "stack": 0, "spill_stores": 0,
+                   "spill_loads": 0, "registers": 102}]
+    k2 = kernel_lib.ptxas_report(PTXAS_LOG, "epl_kernel")
+    assert [(k["stack"], k["spill_stores"], k["spill_loads"],
+             k["registers"]) for k in k2] == [(256, 8, 12, 40)]
+    assert kernel_lib.ptxas_report("cached", "track_scan_kernel") == []
+
+
+def test_cached_library_keeps_its_build_log(tmp_path):
+    src = tmp_path / "csrc"
+    src.mkdir()
+    for name, text in FILES.items():
+        (src / name).write_text(text)
+    flags = GXX + ["-Wall", "-Wunused-variable"]
+    (src / "probe.cpp").write_text(FILES["probe.cpp"]
+                                   + "static int unused_probe_var;\n")
+    first = kernel_lib._build("probe", flags, ["probe.cpp"], csrc=str(src),
+                              build_dir=str(tmp_path / "build"))
+    log = kernel_lib.build_info["probe"]["log"]
+    assert "unused_probe_var" in log
+    assert not kernel_lib.build_info["probe"]["cached"]
+    assert kernel_lib._build("probe", flags, ["probe.cpp"], csrc=str(src),
+                             build_dir=str(tmp_path / "build")) == first
+    assert kernel_lib.build_info["probe"] == {"seconds": 0.0, "cached": True,
+                                              "log": log}

@@ -357,3 +357,94 @@ def test_upsampled_code_matches_jax():
     table = ca_table_bipolar(list(range(1, 33)))
     np.testing.assert_array_equal(upsampled_code_doubled(table),
                                   j_upsampled(table))
+
+
+def _watchdog_array_step(win, sgn, hold):
+    """The watchdog window's array loop as track_epoch.cuh ran it before
+    the masks (and as track_scan_reference runs it): win (W, n) with row
+    W-1 newest; returns the transition counts and the window after."""
+    w_len = win.shape[0]
+    trans = (sgn != win[w_len - 1]).astype(np.int32)
+    for k in range(2, w_len):
+        trans += (win[k] != win[k - 1]).astype(np.int32)
+    shifted = np.concatenate([win[1:], sgn[None]], axis=0)
+    return trans, np.where(hold[None], win, shifted)
+
+
+@pytest.mark.parametrize("window", range(2, 33))
+def test_watchdog_masks_match_array_loop(window):
+    """The kernel's watchdog on two bit masks (load_state packs the (W, C)
+    plane, watchdog_step counts and shifts, store_state unpacks) against
+    the array loop, exactly: seeded windows of +-1, windows still filling
+    (0 entries, as init_state leaves them), the all-zero start, both signs,
+    hold on and off."""
+    from stm32f4_sdr_gps_torch.ops.kernel_lib import host_lib
+
+    rng = np.random.default_rng(window)
+    n = 96
+    win = rng.choice([-1, 1], size=(window, n)).astype(np.int32)
+    filling = rng.choice([-1, 0, 1], size=(window, n)).astype(np.int32)
+    win[:, n // 2:] = filling[:, n // 2:]
+    win[:, -4:] = 0
+    for j, fill in enumerate(range(1, window)):   # a filled suffix only
+        win[:fill, j % (n // 2)] = 0
+    sgn = rng.choice([-1, 1], size=n).astype(np.int32)
+    hold = (np.arange(n) % 3 == 0).astype(np.int32)
+    want_trans, want_win = _watchdog_array_step(win, sgn, hold.astype(bool))
+    got_win = np.ascontiguousarray(win.copy())
+    got_trans = np.zeros(n, np.int32)
+    rc = host_lib().watchdog_host(got_win.ctypes.data, sgn.ctypes.data,
+                                  hold.ctypes.data, got_trans.ctypes.data,
+                                  window, n)
+    assert rc == 0
+    np.testing.assert_array_equal(got_trans, want_trans)
+    np.testing.assert_array_equal(got_win, want_win)
+    # held windows went through the packing and back unchanged
+    np.testing.assert_array_equal(got_win[:, hold == 1], win[:, hold == 1])
+
+
+# (channels, SMs) -> channels per block; 128 threads a channel (K1_THREADS)
+# and 512 a block allow 4 per block
+@pytest.mark.parametrize("c,sms,want", [
+    (1, 132, 1), (4, 132, 1), (32, 132, 1), (131, 132, 1), (132, 132, 1),
+    (133, 132, 2), (256, 132, 2), (264, 132, 2), (265, 132, 3),
+    (528, 132, 4), (529, 132, 4), (1000, 132, 4), (114, 114, 1),
+    (115, 114, 2),
+])
+def test_channels_per_block(c, sms, want):
+    """The launcher's channels per block: one while the channels fit on
+    the SMs, more past the SM count, never more than a block holds."""
+    from stm32f4_sdr_gps_torch.ops.kernel_lib import host_lib
+
+    g = host_lib().k1_channels_per_block(c, sms)
+    assert g == want
+    if c <= 4 * sms:
+        assert -(-c // g) <= sms            # every block on an SM of its own
+
+
+def test_code_phase_mod_is_float_mod():
+    """The kernel's fast code-phase wrap gives float_mod's (fmodf's)
+    result bit for bit: around 0, 1023, 2046 and 3069 ulp by ulp, on
+    seeded values across and beyond its fast range, and on -0, inf and
+    NaN."""
+    from stm32f4_sdr_gps_torch.ops.kernel_lib import host_lib
+
+    rng = np.random.default_rng(3)
+    edges = [np.nextafter(np.float32(e), np.float32(d * np.inf))
+             for e in (0.0, 1023.0, 2046.0, 3069.0) for d in (-1, 1)]
+    around = np.concatenate([
+        e + np.arange(-64, 65, dtype=np.float32) * np.spacing(e)
+        for e in np.float32([1e-3, 1023.0, 2046.0, 3069.0])])
+    a = np.concatenate([
+        np.float32(edges), around,
+        rng.uniform(-5000, 8000, 20000).astype(np.float32),
+        rng.uniform(1020, 2050, 20000).astype(np.float32),
+        np.float32([0.0, -0.0, 1023.0, 2046.0, 3069.0, np.inf, -np.inf,
+                    np.nan, 1e30, -1e-30])]).astype(np.float32)
+    fast = np.empty_like(a)
+    full = np.empty_like(a)
+    assert host_lib().code_phase_mod_host(a.ctypes.data, fast.ctypes.data,
+                                          full.ctypes.data, a.size) == 0
+    np.testing.assert_array_equal(fast.view(np.int32)[~np.isnan(full)],
+                                  full.view(np.int32)[~np.isnan(full)])
+    assert np.array_equal(np.isnan(fast), np.isnan(full))
