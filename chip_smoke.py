@@ -11,7 +11,9 @@ before the result line):
    scan (K1), the per-epoch E/P/L correlator (K2), the correlator-bank
    probe (P5), the epoch-cost probes (P6-P8) and the roll probes (P1-P4);
    fails unless ptxas reports all 8 instantiations of K1's
-   track_scan_kernel with 0 bytes of stack frame and no spills;
+   track_scan_kernel, and every kernel of the P5 and K2 libraries, with
+   0 bytes of stack frame and no spills (their registers, stack and
+   spills go into the kernels line);
 3. K1 vs its plain version on the card: the tracking scan on 32 channels
    (PRNs 1-32 at 48 dBHz, seeded Doppler and code phase, 3 codes per
    bit) over 1000 epochs, and on the main path's 4-channel shape, held to
@@ -40,8 +42,10 @@ before the result line):
    channels at random phases and at the code-phase wrap edges of
    tests/test_pallas.py:57, rtol 1e-4 / atol 1e-3 on the sums (summation
    order, and sincospif vs cos/sin(2 pi .)); at 4 and 32 channels the
-   device time per call (calls queued behind a device sleep) and the
-   time per call over 1000 back-to-back calls, host included;
+   device time per call (calls queued behind a device sleep) beside the
+   launch floor (``torch.cuda._sleep(1)``, a near-empty kernel, queued
+   the same way), and the time per call over 1000 back-to-back calls,
+   host included;
 6. the per-epoch closed loop with K2: ``track_block`` with
    ``use_pallas=True, in_kernel_scan=False`` on phase 3's 32-channel,
    1000-epoch scenario on the card, held to the same scan on CPU copies
@@ -53,7 +57,15 @@ before the result line):
    epoch, no plain-version call and no tracking-scan launch;
 8. P5, both variants at C = 32, SP = 2048, N = 128, T = 1600 on the
    probe's inputs, held to their plain versions (1e-4 of the largest
-   sum), then the probe's entry point, which prints ns per step;
+   sum); the kernels' times beside the one-call yardsticks
+   (``probes/corr_bank.library_call``: ``torch.bmm`` in float32 for fma;
+   for mma a bf16 ``torch.matmul`` over the yr_t and yi rows of every
+   step, the kernel's work, and over the yr_t rows alone, half the
+   work), each yardstick's result checked against the plain version
+   within its output rounding; kernels and yardsticks timed as device
+   time per call, 10 calls queued behind a device sleep; then the
+   probe's entry point, which prints ns per step (a launch's time over
+   its T steps);
 9. P6-P8, every variant (11 + 11 + 8) at the check size (C = 32, G = 2,
    K = 4) on the probe's inputs and on seeded ones, held to its plain
    version on the card (fused steps, P7 and the sums rtol 1e-5, sincos
@@ -149,10 +161,37 @@ def build():
     regs = sorted({k["registers"] for k in k1})
     print(f"[build] K1: all 8 track_scan_kernel instantiations with 0 bytes "
           f"of stack frame and no spills; registers {regs}")
-    return {"stack_bytes": max(k["stack"] for k in k1),
+    ptxas = {"track_scan": _ptxas_record(k1)}
+    for lib, kernels in (("epl_cuda", {"epl": "epl_kernel"}),
+                         ("corr_bank_cuda", {"corr_bank_fma": "fma_kernel",
+                                             "corr_bank_mma": "mma_kernel"})):
+        log = kernel_lib.build_info[lib]["log"]
+        every = kernel_lib.ptxas_report(log, "")
+        bad = [k for k in every if k["stack"] or k["spill_stores"]
+               or k["spill_loads"]]
+        if not every or bad:
+            fail(f"{lib}: ptxas reports {len(every)} kernels, with a stack "
+                 f"frame or spills: {bad}")
+        for name, kernel in kernels.items():
+            rec = kernel_lib.ptxas_report(log, kernel)
+            if len(rec) != 1:
+                fail(f"{lib}: ptxas reports {len(rec)} entries named {kernel}")
+            ptxas[name] = _ptxas_record(rec)
+        print(f"[build] {lib}: {len(every)} kernels with 0 bytes of stack "
+              f"frame and no spills; registers "
+              f"{ {k['name']: k['registers'] for k in every} }")
+    # ptxas warns when it has to serialise the mma kernel's wgmmas
+    ptxas["wgmma_serialized"] = "serialized" in kernel_lib.build_info[
+        "corr_bank_cuda"]["log"]
+    return ptxas
+
+
+def _ptxas_record(report):
+    """The largest registers, stack and spill bytes over ptxas entries."""
+    return {"registers": max(k["registers"] for k in report),
+            "stack_bytes": max(k["stack"] for k in report),
             "spill_bytes": max(k["spill_stores"] + k["spill_loads"]
-                               for k in k1),
-            "registers": max(regs)}
+                               for k in report)}
 
 
 # The H100 SXM data sheet's peaks at 700 W (dense, without sparsity)
@@ -537,7 +576,7 @@ def epl_vs_plain():
 
     from stm32f4_sdr_gps_torch.config import BASEBAND_PLAN
     from stm32f4_sdr_gps_torch.ops import epl
-    from stm32f4_sdr_gps_torch.probes.common import queued_ms
+    from stm32f4_sdr_gps_torch.probes.common import queued_ms, warm_up
     from stm32f4_sdr_gps_torch.signal.ca_code import ca_table_bipolar
 
     dev = torch.device("cuda")
@@ -581,15 +620,18 @@ def epl_vs_plain():
         def plain():
             return epl.epl_correlate_halfchip(*args, fs)
 
-        kernel(), plain()                                    # warm-up
+        warm_up(kernel)
+        plain()
         k_dev = queued_ms(kernel, 3, 500)
+        floor = queued_ms(lambda: torch.cuda._sleep(1), 3, 500)
         p_dev = queued_ms(plain, 3, 30)
         k_ms = _median_ms(kernel, 3, 1000)
         p_ms = _median_ms(plain, 3, 1000)
-        times[c] = {"ms": k_dev, "plain_ms": p_dev, "call_ms": k_ms,
-                    "plain_call_ms": p_ms}
+        times[c] = {"ms": k_dev, "plain_ms": p_dev, "floor_ms": floor,
+                    "call_ms": k_ms, "plain_call_ms": p_ms}
         print(f"[epl] {c} ch: device time per call (queued ahead) kernel "
-              f"{k_dev * 1e3:.2f} us, plain version {p_dev * 1e3:.2f} us; "
+              f"{k_dev * 1e3:.3f} us, launch floor (an empty kernel) "
+              f"{floor * 1e3:.3f} us, plain version {p_dev * 1e3:.2f} us; "
               f"per call over 1000 back-to-back calls (host included) "
               f"kernel {k_ms * 1e3:.2f} us, plain version {p_ms * 1e3:.2f} us"
               " (CUDA events)")
@@ -644,12 +686,15 @@ def half_chip_path(sc):
 
 
 def corr_bank():
-    """P5: both variants against their plain versions, then the probe's
-    entry point (launches counted there)."""
+    """P5: both variants against their plain versions, the kernels' times
+    beside the one-call yardsticks, then the probe's entry point
+    (launches counted there)."""
     import numpy as np
     import torch
 
     from stm32f4_sdr_gps_torch.probes import corr_bank as cb
+    from stm32f4_sdr_gps_torch.probes.common import (SLEEP_CYCLES, queued_ms,
+                                                     warm_up)
 
     steps = 1600
     inputs = cb.device_inputs(torch.device("cuda"))
@@ -671,33 +716,54 @@ def corr_bank():
         tol = 1e-4 * float(np.abs(w).max())
         if err > tol:
             fail(f"P5 {variant}: max |kernel - plain| {err} > {tol}")
-        k_ms = _median_ms(lambda: cb.KERNELS[variant](*args, steps), 5, 1)
+        warm_up(lambda: cb.KERNELS[variant](*args, steps))
+        k_ms = queued_ms(lambda: cb.KERNELS[variant](*args, steps), 5, 10,
+                         SLEEP_CYCLES)
         p_ms = _median_ms(lambda: cb.PLAIN[variant](*args, steps), 3, 1)
         print(f"[p5] {variant}: max |kernel - plain| {err:.4g} (tolerance "
               f"{tol:.4g}, |sums| up to {np.abs(w).max():.1f}); kernel "
               f"{k_ms:.4f} ms, plain version {p_ms:.2f} ms per {steps} steps")
-        res[variant] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms}
-    # the yardstick: the bank's products for all the steps in one torch
-    # call (the sums over the steps left out), the stacked perturbed
-    # epochs built outside the timed call
-    yr, yi, rep = inputs["fma"]
-    pert = torch.tensor([cb._perturbation(t) for t in range(steps)],
-                        device=yr.device)
-    y_all = torch.cat([yr[None] + pert[:, None, None],
-                       yi[None].expand(steps, -1, -1)]).transpose(0, 1)
-    y_all = y_all.contiguous()                                # (C, 2T, SP)
-    rep_t = rep.permute(1, 2, 0).contiguous()                 # (C, SP, 3)
-    a_all = (yr[None] + pert[:, None, None]).reshape(-1, cb.SP).to(
-        torch.bfloat16)                                       # (T C, SP)
-    library = {"fma": lambda: torch.bmm(y_all, rep_t),
-               "mma": lambda: torch.matmul(a_all, inputs["mma"][2])}
+        res[variant] = {"max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                        "want": want}
+    # the yardsticks: every step's products in one torch call, the stacked
+    # inputs built outside the timed call; each checked against the plain
+    # version within its output rounding (bf16 for mma: 2^-9 of each
+    # product, two products a channel and step)
+    for lib in cb.LIBRARY:
+        variant = "fma" if lib == "fma" else "mma"
+        args = inputs[variant]
+        call = cb.library_call(lib, args, steps)
+        out = call()
+        if lib != "mma_yr":
+            tot = cb.library_totals(variant, out, args[3] if variant == "mma"
+                                    else None, steps)
+            w = res[variant]["want"].double()
+            diff = float((tot - w).abs().max())
+            tol = (1e-4 * float(w.abs().max()) if variant == "fma"
+                   else 2 * steps * 2.0 ** -9 * float(out.float().abs().max()))
+            if diff > tol:
+                fail(f"P5 yardstick {lib}: max |library - plain| {diff} > "
+                     f"{tol}")
+        ms = queued_ms(call, 5, 10, SLEEP_CYCLES)
+        key = "library_ms" if lib != "mma_yr" else "library_yr_ms"
+        res[variant][key] = ms
+        what = {"fma": "torch.bmm float32 (TF32 off)",
+                "mma": "torch.matmul bf16, yr_t and yi rows (same work)",
+                "mma_yr": "torch.matmul bf16, yr_t rows only (half the "
+                          "work)"}[lib]
+        print(f"[p5] yardstick {lib}: {what} over all {steps} steps "
+              f"{ms:.4f} ms" + (f"; agrees with the plain version within "
+                                f"{diff:.4g} (tolerance {tol:.4g})"
+                                if lib != "mma_yr" else ""))
+        del call, out
+        torch.cuda.empty_cache()
     for variant in ("fma", "mma"):
-        library[variant]()
-        res[variant]["library_ms"] = _median_ms(library[variant], 3, 1)
-        print(f"[p5] {variant}: the one-call yardstick "
-              f"({'torch.bmm' if variant == 'fma' else 'torch.matmul'} over "
-              f"all {steps} steps) {res[variant]['library_ms']:.4f} ms")
-    del y_all, a_all
+        del res[variant]["want"]
+        r = res[variant]
+        print(f"[p5] {variant}: kernel {r['ms']:.4f} ms against the "
+              f"same-work yardstick {r['library_ms']:.4f} ms: the "
+              f"{'kernel' if r['ms'] < r['library_ms'] else 'yardstick'} "
+              "wins")
     c, sp, n = cb.C, cb.SP, cb.N
     res["fma"]["bound"] = bound(_nbytes(*inputs["fma"]) + c * 4,
                                 steps * c * sp * 13)
@@ -710,9 +776,9 @@ def corr_bank():
         res[variant]["launches"] = cb.KERNELS[variant].launches
         if res[variant]["launches"] == 0:
             fail(f"P5 {variant}: the probe's entry point launched nothing")
-    print(f"[p5] per step at 32 channels: vector sums (fma) "
-          f"{res['fma']['ns_per_step']:.1f} ns, tensor-core products (mma) "
-          f"{res['mma']['ns_per_step']:.1f} ns")
+    print(f"[p5] per step at 32 channels (a launch's time over its steps): "
+          f"vector sums (fma) {res['fma']['ns_per_step']:.1f} ns, tensor-core"
+          f" products (mma) {res['mma']['ns_per_step']:.1f} ns")
     return res
 
 
@@ -959,7 +1025,7 @@ def main():
         fail(f"stm32f4_sdr_gps_torch imported from {pkg_dir}, not from this "
              "checkout")
     name, smi = card()
-    k1_ptxas = build()
+    ptxas = build()
     k1_err, k1_times, scenario, k1_modes = kernel_vs_plain()
 
     from stm32f4_sdr_gps_torch.signal.scenarios import fix_scenario
@@ -1013,7 +1079,7 @@ def main():
                         ("bound_ms", k1_times[c]["bound"][0]),
                         ("bound_by", k1_times[c]["bound"][1]))
            if v is not None},
-        **k1_ptxas,
+        **ptxas["track_scan"],
         "fix_error_m": fix_err,
         "main_path_wall_s": wall,
         "main_path_track_ms_per_block": track_ms,
@@ -1036,6 +1102,7 @@ def main():
         "library_ms": None,
         **{f"{k}_32ch": v for k, v in k2_times[32].items()},
         "bound_ms_32ch": k2_b32[0],
+        **ptxas["epl"],
     }] + [{
         "name": f"corr_bank_{v}",
         "route": "cuda",
@@ -1048,7 +1115,11 @@ def main():
         "bound_ms": p5[v]["bound"][0],
         "bound_by": p5[v]["bound"][1],
         "library_ms": p5[v]["library_ms"],
+        **({"library_yr_ms": p5[v]["library_yr_ms"],
+            "wgmma_serialized": ptxas["wgmma_serialized"]}
+           if v == "mma" else {}),
         "ns_per_step": p5[v]["ns_per_step"],
+        **ptxas[f"corr_bank_{v}"],
     } for v in ("fma", "mma")] + [{
         "name": name,
         "route": "cuda",

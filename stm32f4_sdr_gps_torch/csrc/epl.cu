@@ -7,27 +7,32 @@
 // TrackConfig.use_pallas with the whole-block scan off) launches it once
 // per epoch through ops/epl.py:epl_correlate.
 //
-// Design.  One block of 256 threads per channel.  Every thread reads the
-// channel's code phase, Doppler and carrier phase, and takes the samples
-// k = tid, tid + 256, ... of the 2046 (no padding lanes): the carrier is
-// rotated off exactly per sample and the replica is read from the
-// channel's doubled upsampled code row in global memory at u2[m - 1 + k],
-// u2[m + k], u2[m + 1 + k], with m the integer half-chip shift.  The
-// per-sample work (epl_sample) and the shift (halfchip_shift) are the
-// tracking-scan kernel's own, from track_epoch.cuh, and so is the block
-// reduction of the six sums (block_sum6); thread 0 writes the channel's
-// row of the (C, 3) complex64 output.  The TPU kernel's lane rolls of the
-// code row, its zero-padded epoch and its clamp of a negative shift are
-// gone: the shift is asserted to lie in [1, 2046] instead.
+// Design.  One block of K1_THREADS (128) threads per channel, which adds
+// the epoch's E/P/L in the tracking scan's order (track_scan.cu), so with
+// the same (m, ph, dopfs) the two kernels give the same sums bit for bit:
+// thread tid takes the samples k = tid + j * 128, j < 16, the two past the
+// 2046 being exact zeros in registers (the kernel reads x straight from its
+// (2046,) tensor and never past it); the six sums go through the
+// transposed warp butterfly (warp_sum6), one block barrier and the
+// pairwise tree over the four warps (tree_sum), all from track_epoch.cuh.
+// The trip count is a compile-time constant, so each thread issues all of
+// its loads (16 samples of x, the 16 x 3 replica values u2[m - 1 + k],
+// u2[m + k], u2[m + 1 + k]) before its arithmetic and pays their latency
+// once.  The carrier is rotated off exactly per sample (epl_terms).
+// Threads 0-5 write the channel's six sums, its row of the (C, 3)
+// complex64 output.  The TPU kernel's lane rolls of the code row, its
+// zero-padded epoch and its clamp of a negative shift are gone: the shift
+// m is asserted to lie in [1, 2046], which keeps every replica read,
+// u2[m - 1 + 2049] at most, inside the 4352-wide row.
 //
 // Bound.  Per epoch each block reads the 16 KB epoch (all C blocks share
 // it through the 50 MB L2) and a 16 KB window of its 17 KB code row, and
-// does one sincospif and six multiply-adds per sample: a few microseconds
-// of work that at the receiver's few channels fills a handful of the 132
-// SMs, so one launch costs about its launch latency.  The per-epoch path
-// around it (about 120 small torch launches per epoch) costs far more;
-// the whole-block scan (track_scan.cu) is the fast path.  Making this
-// kernel faster is later work.
+// does one sincospif, the rotation and six multiply-adds per sample: well
+// under a microsecond of work that at the receiver's few channels fills a
+// handful of the 132 SMs, so one launch costs about its launch latency
+// (chip_smoke.py times an empty kernel beside it).  The per-epoch path
+// around it (about 210 small torch launches per epoch) costs far more; the
+// whole-block scan (track_scan.cu) is the fast path.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // -fmad=false -shared -Xcompiler -fPIC (ops/kernel_lib.py).
@@ -39,31 +44,51 @@
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
+using track::K1_THREADS;
+using track::K1_WARPS;
 
-__global__ void __launch_bounds__(THREADS)
+constexpr int NJ = track::SP / K1_THREADS;   // samples per thread
+constexpr int PART = 8;                      // floats per warp partial
+
+__global__ void __launch_bounds__(K1_THREADS)
 epl_kernel(const float2* __restrict__ x, const float* __restrict__ u2,
            const float* __restrict__ cp, const float* __restrict__ dop,
            const float* __restrict__ ph, float* __restrict__ out,
            float fs) {
-    __shared__ float s_part[WARPS][6];
+    __shared__ float s_part[K1_WARPS * PART];
     const int c = blockIdx.x;
+    const int tid = threadIdx.x;
     const int m = track::halfchip_shift(cp[c]);
     // the precondition that keeps every replica read inside the row
     assert(m >= 1 && m <= track::S);
     const float* rep = u2 + (size_t)c * track::U2P + (m - 1);
     const float phase = ph[c];
     const float dopfs = dop[c] / fs;
-    float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int k = threadIdx.x; k < track::S; k += THREADS) {
-        const float2 v = x[k];
-        track::epl_sample(acc, v.x, v.y, k, phase, dopfs, rep);
-    }
-    track::block_sum6<WARPS>(acc, s_part);
-    if (threadIdx.x == 0) {
+    float2 v[NJ];
+    float e[NJ], p[NJ], l[NJ];
 #pragma unroll
-        for (int j = 0; j < 6; ++j) out[(size_t)c * 6 + j] = acc[j];
+    for (int j = 0; j < NJ; ++j) {
+        const int k = tid + j * K1_THREADS;
+        v[j] = k < track::S ? x[k] : make_float2(0.f, 0.f);
+        e[j] = rep[k];
+        p[j] = rep[k + 1];
+        l[j] = rep[k + 2];
+    }
+    float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+        track::epl_terms(acc, v[j].x, v[j].y, tid + j * K1_THREADS, phase,
+                         dopfs, e[j], p[j], l[j]);
+    const float total = track::warp_sum6(acc);
+    const int lane = tid % 32;
+    if (lane % 4 == 0 && lane < 24)                  // lane 4j: sum j
+        s_part[(tid / 32) * PART + lane / 4] = total;
+    __syncthreads();
+    if (tid < 6) {
+        float w[K1_WARPS];
+#pragma unroll
+        for (int i = 0; i < K1_WARPS; ++i) w[i] = s_part[i * PART + tid];
+        out[(size_t)c * 6 + tid] = track::tree_sum<K1_WARPS>(w);
     }
 }
 
@@ -82,7 +107,7 @@ extern "C" int epl_launch(const void* x, const void* u2, const void* cp,
     const float* dp = static_cast<const float*>(dop);
     const float* pp = static_cast<const float*>(ph);
     float* op = static_cast<float*>(out);
-    epl_kernel<<<C, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+    epl_kernel<<<C, K1_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
         xp, up, cpp, dp, pp, op, fs);
     return static_cast<int>(cudaGetLastError());
 }

@@ -5,11 +5,10 @@
 // terms in the tracking scan's order: per thread over the staged samples
 // k = tid + j * K1_THREADS (the zero padding past 2046 included), then the
 // transposed butterfly within each warp (warp_sum6), then the pairwise
-// tree over the channel's warps (tree_sum).  epl_sums adds them in the
-// per-epoch kernel's order: per thread over k = tid, tid + 256, ..., then the
-// shuffle-down tree within each warp and the 8 warps in order
-// (block_sum6).  track_scan_host runs the tracking-scan kernel's loop
-// serially, one channel at a time; epl_host runs the per-epoch correlator.
+// tree over the channel's warps (tree_sum); the per-epoch kernel (epl.cu)
+// adds them in the same order.  track_scan_host runs the tracking-scan
+// kernel's loop serially, one channel at a time; epl_host runs the
+// per-epoch correlator through the same k1_sums.
 // The CPU tests hold them against the plain torch versions
 // (ops/track_scan.py:track_scan_reference, ops/epl.py:
 // epl_correlate_halfchip), which checks the CUDA sources' arithmetic on a
@@ -23,9 +22,6 @@
 #include "track_epoch.cuh"
 
 namespace {
-
-constexpr int EPL_THREADS = 256;
-constexpr int EPL_WARPS = EPL_THREADS / 32;
 
 // The six E/P/L sums of one epoch in the tracking scan's order; xe is the
 // epoch as interleaved float pairs and rep points at u2[m - 1] of the
@@ -67,31 +63,6 @@ void k1_sums(const float* xe, const float* rep, float ph, float dopfs,
     }
     for (int j = 0; j < 6; ++j)
         sums[j] = track::tree_sum<track::K1_WARPS>(part[j]);
-}
-
-// The same sums in the per-epoch kernel's order (block_sum6).
-void epl_sums(const float* xe, const float* rep, float ph, float dopfs,
-              float sums[6]) {
-    float acc[EPL_THREADS][6];
-    for (int tid = 0; tid < EPL_THREADS; ++tid) {
-        for (int j = 0; j < 6; ++j) acc[tid][j] = 0.0f;
-        for (int k = tid; k < track::S; k += EPL_THREADS)
-            track::epl_sample(acc[tid], xe[2 * k], xe[2 * k + 1], k, ph,
-                              dopfs, rep);
-    }
-    for (int j = 0; j < 6; ++j) {
-        float part[EPL_WARPS];
-        for (int w = 0; w < EPL_WARPS; ++w) {
-            float v[32];
-            for (int l = 0; l < 32; ++l) v[l] = acc[w * 32 + l][j];
-            for (int off = 16; off > 0; off >>= 1)
-                for (int l = 0; l < off; ++l) v[l] = v[l] + v[l + off];
-            part[w] = v[0];
-        }
-        float s = part[0];
-        for (int w = 1; w < EPL_WARPS; ++w) s += part[w];
-        sums[j] = s;
-    }
 }
 
 }  // namespace
@@ -191,8 +162,8 @@ extern "C" int epl_host(const void* x, const void* u2, const void* cp,
     for (int c = 0; c < C; ++c) {
         const int m = track::halfchip_shift(cpf[c]);
         if (m < 1 || m > track::S) return 1;
-        epl_sums(xf, uf + (size_t)c * track::U2P + (m - 1), pf[c],
-                 df[c] / fs, of + (size_t)c * 6);
+        k1_sums(xf, uf + (size_t)c * track::U2P + (m - 1), pf[c],
+                df[c] / fs, of + (size_t)c * 6);
     }
     return 0;
 }

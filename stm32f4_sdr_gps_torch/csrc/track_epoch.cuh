@@ -1,9 +1,10 @@
 // Per-channel arithmetic of the tracking-scan kernel (track_scan.cu) and
 // of the per-epoch E/P/L kernel (epl.cu), which share the correlator
-// (halfchip_shift, epl_sample); epl.cu and the probes corr_bank.cu and
-// forest.cu also use the block reduction block_sum6.  The tracking scan
-// has its own reduction (warp_sum6, tree_sum) and launch shape (K1_THREADS,
-// k1_channels_per_block).
+// (halfchip_shift, epl_terms), the reduction of one epoch's six sums
+// (warp_sum6, tree_sum) and its thread count (K1_THREADS), so both add an
+// epoch's E/P/L in one order.  The probes corr_bank.cu and forest.cu use
+// the block reduction block_sum6.  The tracking scan also has its launch
+// shape (k1_channels_per_block).
 //
 // Everything but the warp and block reductions is __host__ __device__:
 // nvcc builds it into the Hopper kernels, and g++ builds the same source
@@ -308,18 +309,18 @@ __host__ __device__ inline int halfchip_shift(float code_phase) {
 }
 
 // One sample's contribution to the six E/P/L sums (ie, qe, ip, qp, il,
-// ql).  The carrier angle is computed exactly per sample in cycles,
-// wrapped to [0, 1), and rotated off; rep points at u2[m - 1] of the row.
-__host__ __device__ inline void epl_sample(float acc[6], float xr, float xi,
-                                           int k, float ph, float dopfs,
-                                           const float* rep) {
+// ql), given the replica's early, prompt and late values e, pr, l.  The
+// carrier angle is computed exactly per sample in cycles, wrapped to
+// [0, 1), and rotated off.
+__host__ __device__ inline void epl_terms(float acc[6], float xr, float xi,
+                                          int k, float ph, float dopfs,
+                                          float e, float pr, float l) {
     float ang = ph + dopfs * (float)k;
     ang = ang - floorf(ang);
     float sn, cs;
     sincospif(2.0f * ang, &sn, &cs);
     const float yr = xr * cs + xi * sn;
     const float yi = xi * cs - xr * sn;
-    const float e = rep[k], pr = rep[k + 1], l = rep[k + 2];
     acc[0] += yr * e;
     acc[1] += yi * e;
     acc[2] += yr * pr;
@@ -328,10 +329,18 @@ __host__ __device__ inline void epl_sample(float acc[6], float xr, float xi,
     acc[5] += yi * l;
 }
 
+// epl_terms with the replica read from rep, which points at u2[m - 1] of
+// the channel's row.
+__host__ __device__ inline void epl_sample(float acc[6], float xr, float xi,
+                                           int k, float ph, float dopfs,
+                                           const float* rep) {
+    epl_terms(acc, xr, xi, k, ph, dopfs, rep[k], rep[k + 1], rep[k + 2]);
+}
+
 #ifdef __CUDACC__
 // Sum each of the six per-thread partials acc[6] over a block of
 // 32 * WARPS threads: the shuffle-down tree within each warp, then the
-// warps in order (kernels_host.cpp block_sums reproduces this order).  The
+// warps in order (forest_host.cpp reproduces this order).  The
 // totals are left in thread 0's acc only.  The call ends with thread 0
 // reading s_part after a block barrier, so the caller must not write the
 // same s_part again before every thread has passed one more barrier.

@@ -21,7 +21,9 @@ counterparts here, and :func:`epl_correlate` picks by device:
 
 There is no fallback from one to the other: a CUDA tensor launches the
 kernel or raises.  The tracking-scan kernel (ops.track_scan) computes the
-same sums inside its loop, from the same source (``csrc/track_epoch.cuh``).
+same sums inside its loop, from the same source (``csrc/track_epoch.cuh``)
+and in the same order, so for the same epoch and state the two kernels'
+sums are equal bit for bit.
 """
 
 from __future__ import annotations

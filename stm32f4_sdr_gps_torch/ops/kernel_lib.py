@@ -201,11 +201,11 @@ def epl_lib() -> ctypes.CDLL:
 def corr_bank_lib() -> ctypes.CDLL:
     """The correlator-bank probe library (``corr_bank_fma_launch``,
     ``corr_bank_mma_launch``)."""
-    # fma: yr, yi, rep, out; mma: yr, yi, repT, mask, out, partial;
-    # then C, T, stream
+    # fma: yr, yi, rep, out, partial; mma: yr, yi, repT, mask, out,
+    # partial; then C, T, stream
     return _load("corr_bank_cuda", [_nvcc()] + NVCC_FLAGS,
                  ["corr_bank.cu"],
-                 {"corr_bank_fma_launch": [_PTR] * 4 + [_INT, _INT, _PTR],
+                 {"corr_bank_fma_launch": [_PTR] * 5 + [_INT, _INT, _PTR],
                   "corr_bank_mma_launch": [_PTR] * 6 + [_INT, _INT, _PTR]})
 
 

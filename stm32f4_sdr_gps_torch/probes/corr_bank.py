@@ -13,11 +13,15 @@ Each has a hand-written Hopper kernel (``csrc/corr_bank.cu``) behind a
 wrapper that counts its launches, and a plain torch version.  The mma
 plain version rounds the same inputs to bf16 and forms the products in
 float64, so it is the exact statement the kernel's float32 accumulators
-approximate.
+approximate.  :func:`library_call` is each variant's yardstick: every
+step's products in one torch call.
 
     python -m stm32f4_sdr_gps_torch.probes.corr_bank [fma|mma] [T]
 
-prints the kernel's time per step from CUDA events (needs a CUDA device).
+prints the kernel's device time per step (CUDA events around launches
+queued behind a device sleep; needs a CUDA device): a launch's time over
+its T steps, which the kernel runs side by side, so a throughput
+comparable with the one-call yardstick.
 """
 
 from __future__ import annotations
@@ -27,10 +31,19 @@ import sys
 import numpy as np
 import torch
 
-from .common import check_tensor, event_ms, stream
+from .common import SLEEP_CYCLES, check_tensor, queued_ms, stream, warm_up
 
 C, SP, N = 32, 2048, 128
-MMA_SLICES = 32        # K slices of the mma kernel (csrc/corr_bank.cu NBLK)
+FMA_SPLIT = 8          # blocks a channel of the fma kernel (csrc/corr_bank.cu)
+MMA_CTAS = 128         # K slices of 16, one CTA each, of the mma kernel
+MMA_ROWS = 2 * C       # the mma kernel's A: yr_t rows over yi rows
+
+
+def scratch_shape(variant: str, c: int = C) -> tuple:
+    """The float32 scratch a variant's kernel writes its partial sums to
+    at ``c`` channels: fma (C, FMA_SPLIT), one per channel and block; mma
+    (MMA_CTAS, MMA_ROWS), one per CTA and stacked row."""
+    return (c, FMA_SPLIT) if variant == "fma" else (MMA_CTAS, MMA_ROWS)
 
 
 def probe_inputs(seed: int = 0):
@@ -80,25 +93,36 @@ def corr_bank_mma_reference(yr, yi, rep_t, mask, steps: int) -> torch.Tensor:
     return acc
 
 
+def _check_steps(steps) -> None:
+    if not isinstance(steps, int) or steps < 0:
+        raise ValueError(f"steps: want an int >= 0, got {steps!r}")
+
+
 def corr_bank_fma_cuda(yr, yi, rep, steps: int) -> torch.Tensor:
     """Launch the fma kernel (csrc/corr_bank.cu): yr, yi (C, 2048) and
-    rep (3, C, 2048) float32 on the card.  ``launches`` counts them."""
+    rep (3, C, 2048) float32 on the card.  The arguments are checked
+    before the device, so the checks also run on CPU tensors, which the
+    wrapper then refuses.  ``launches`` counts the launches."""
     from ..ops.kernel_lib import corr_bank_lib
 
-    if not yr.is_cuda:
-        raise ValueError("corr_bank_fma_cuda needs CUDA tensors")
     c = yr.shape[0]
     for name, t, shape in (("yr", yr, (c, SP)), ("yi", yi, (c, SP)),
                            ("rep", rep, (3, c, SP))):
         check_tensor(name, t, shape, torch.float32, yr.device)
+    _check_steps(steps)
+    if not yr.is_cuda:
+        raise ValueError("corr_bank_fma_cuda needs CUDA tensors")
     out = torch.empty((c, 1), dtype=torch.float32, device=yr.device)
     if c == 0:
         return out
+    partial = torch.empty(scratch_shape("fma", c), dtype=torch.float32,
+                          device=yr.device)
     lib = corr_bank_lib()
     with torch.cuda.device(yr.device):
         rc = lib.corr_bank_fma_launch(yr.data_ptr(), yi.data_ptr(),
-                                      rep.data_ptr(), out.data_ptr(), c,
-                                      steps, stream(yr.device))
+                                      rep.data_ptr(), out.data_ptr(),
+                                      partial.data_ptr(), c, steps,
+                                      stream(yr.device))
     if rc != 0:
         raise RuntimeError(f"corr_bank fma launch failed: CUDA error {rc}")
     corr_bank_fma_cuda.launches += 1
@@ -110,22 +134,25 @@ corr_bank_fma_cuda.launches = 0
 
 def corr_bank_mma_cuda(yr, yi, rep_t, mask, steps: int) -> torch.Tensor:
     """Launch the mma kernel (csrc/corr_bank.cu): yr, yi (32, 2048)
-    float32, repT (2048, 128) bfloat16 and mask (32, 128) float32 on the
-    card.  ``launches`` counts them."""
+    float32 and 8-byte aligned, repT (2048, 128) bfloat16 and mask
+    (32, 128) float32 on the card.  Checked as the fma wrapper checks;
+    ``launches`` counts the launches."""
     from ..ops.kernel_lib import corr_bank_lib
 
-    if not yr.is_cuda:
-        raise ValueError("corr_bank_mma_cuda needs CUDA tensors")
     for name, t, shape, dtype in (
             ("yr", yr, (C, SP), torch.float32),
             ("yi", yi, (C, SP), torch.float32),
             ("repT", rep_t, (SP, N), torch.bfloat16),
             ("mask", mask, (C, N), torch.float32)):
         check_tensor(name, t, shape, dtype, yr.device)
-    if rep_t.data_ptr() % 32:
-        raise ValueError("repT must be 32-byte aligned (wmma loads)")
+    for name, t in (("yr", yr), ("yi", yi)):
+        if t.data_ptr() % 8:
+            raise ValueError(f"{name} must be 8-byte aligned (float2 loads)")
+    _check_steps(steps)
+    if not yr.is_cuda:
+        raise ValueError("corr_bank_mma_cuda needs CUDA tensors")
     out = torch.empty((C, 1), dtype=torch.float32, device=yr.device)
-    partial = torch.empty((MMA_SLICES, C), dtype=torch.float32,
+    partial = torch.empty(scratch_shape("mma"), dtype=torch.float32,
                           device=yr.device)
     lib = corr_bank_lib()
     with torch.cuda.device(yr.device):
@@ -155,11 +182,68 @@ KERNELS = {"fma": corr_bank_fma_cuda, "mma": corr_bank_mma_cuda}
 PLAIN = {"fma": corr_bank_fma_reference, "mma": corr_bank_mma_reference}
 
 
+def _stacked_steps(yr, yi, steps: int) -> torch.Tensor:
+    """(2, T, C, SP) float32: every step's perturbed yr_t over yi."""
+    pert = torch.tensor([_perturbation(t) for t in range(steps)],
+                        dtype=torch.float32, device=yr.device)
+    return torch.stack([yr[None] + pert[:, None, None],
+                        yi[None].expand(steps, -1, -1)])
+
+
+def library_call(variant: str, args: tuple, steps: int):
+    """The yardstick: a function of no arguments that forms every step's
+    products of ``variant`` in one torch call, on inputs stacked here,
+    outside the timed call.  ``args`` are the kernel's (``device_inputs``).
+
+    * ``fma``: one float32 ``torch.bmm`` of each channel's (2T, SP) rows,
+      yr_t and yi for every step, with its (SP, 3) replica rows, giving
+      (C, 2T, 3): all six sums of every step.  TF32 is switched off for
+      it (``torch.backends.cuda.matmul.allow_tf32 = False``, PyTorch's
+      default), so the products stay float32.
+    * ``mma``: one bf16 ``torch.matmul`` of the (2 T C, SP) stacked rows,
+      yr_t and yi for every step (the kernel's work), with repT, giving
+      the (2 T C, N) products in bf16.
+    * ``mma_yr``: the same over the yr_t rows alone, (T C, N): half the
+      work."""
+    if variant == "fma":
+        yr, yi, rep = args
+        torch.backends.cuda.matmul.allow_tf32 = False
+        y_all = _stacked_steps(yr, yi, steps).permute(2, 1, 0, 3).reshape(
+            yr.shape[0], 2 * steps, SP).contiguous()        # (C, 2T, SP)
+        rep_t = rep.permute(1, 2, 0).contiguous()           # (C, SP, 3)
+        return lambda: torch.bmm(y_all, rep_t)
+    yr, yi, rep_t, _ = args
+    stacked = _stacked_steps(yr, yi, steps).to(torch.bfloat16)
+    if variant == "mma_yr":
+        stacked = stacked[0]
+    a_all = stacked.reshape(-1, SP).contiguous()
+    return lambda: torch.matmul(a_all, rep_t)
+
+
+LIBRARY = ("fma", "mma", "mma_yr")
+
+
+def library_totals(variant: str, result: torch.Tensor, mask=None,
+                   steps: int = 0) -> torch.Tensor:
+    """A yardstick's result reduced to the probe's (C, 1) output: the
+    fma sums added over steps and lags; the mma rows masked, row-summed
+    and added over steps and products, in float64."""
+    r = result.to(torch.float64)
+    if variant == "fma":
+        return r.sum((1, 2))[:, None]
+    r = r.reshape(-1, steps, C, N) * mask.to(torch.float64)
+    return r.sum((0, 1, 3))[:, None]
+
+
 def ns_per_step(variant: str, args: tuple, steps: int, reps: int = 5) -> float:
-    """Median over ``reps`` launches of the kernel's CUDA-event time, per
-    step, in nanoseconds (after one warm-up launch)."""
+    """The kernel's device time per step in nanoseconds: the median over
+    ``reps`` of 10 launches queued behind a device sleep (after a warm-up),
+    per launch, over its ``steps``.  A launch runs its steps side by side,
+    so this is a throughput."""
     fn = KERNELS[variant]
-    return event_ms(lambda: fn(*args, steps), reps) * 1e6 / steps
+    warm_up(lambda: fn(*args, steps))
+    return queued_ms(lambda: fn(*args, steps), reps, 10,
+                     SLEEP_CYCLES) * 1e6 / steps
 
 
 def run(variant: str, steps: int) -> float:

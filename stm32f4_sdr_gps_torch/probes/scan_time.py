@@ -1,18 +1,28 @@
-"""K1's time per 1000-epoch block on the card, for one or more checkouts
-of this repository, in turns.
+"""The kernels' times on the card, for one or more checkouts of this
+repository, in turns.
 
     python stm32f4_sdr_gps_torch/probes/scan_time.py ROOT [ROOT ...]
 
 For each ROOT in the order given (parent, change, change, parent to
 compare two commits on one card), a fresh process imports
-``stm32f4_sdr_gps_torch`` from ROOT, builds that checkout's tracking-scan
-kernel and times it in the default mode on :func:`k1_scenario` at 32, 4,
-128 and 256 channels (the 128 and 256 by tiling the 32 channels' state
-planes and code rows 4 and 8 times, :func:`tiled`): the median over 5 runs
-of 20 back-to-back launches, timed with CUDA events, and the channels per
-block (G) where the checkout reports it.  Prints one JSON line per run
-and the card's ``nvidia-smi`` name and power limit; exits 1 without a
-card.  Run as a script, the file imports the package only from ROOT, so
+``stm32f4_sdr_gps_torch`` from ROOT, builds that checkout's kernels and
+times
+
+* K1 in the default mode on :func:`k1_scenario` at 32, 4, 128 and 256
+  channels (the 128 and 256 by tiling the 32 channels' state planes and
+  code rows 4 and 8 times, :func:`tiled`): the median over 5 runs of 20
+  back-to-back launches per 1000-epoch block, timed with CUDA events,
+  and the channels per block (G) where the checkout reports it;
+* K2 on one seeded epoch at 4 and 32 channels: device time per call, 500
+  calls queued behind a device sleep (``probes/common.queued_ms``);
+* the per-epoch half-chip loop with K2 (``track_block`` with
+  ``use_pallas=True, in_kernel_scan=False``) on :func:`k1_scenario`:
+  seconds of host clock for its 1000 epochs, ending in a synchronize;
+* P5, both variants at T = 1600 on the probe's inputs: device time per
+  launch, 10 launches queued behind a device sleep.
+
+Prints one JSON line per run and the card's ``nvidia-smi`` name and power
+limit; exits 1 without a card.  Run as a script, the file imports the package only from ROOT, so
 it also times checkouts that predate it.  chip_smoke.py and
 probes/scan_parts.py build their K1 scenarios with :func:`k1_scenario`
 and :func:`tiled` too.
@@ -115,6 +125,76 @@ def _time_one(root: str) -> dict:
             sub, x, table, BASEBAND_PLAN, cfg))
         if lib is not None:
             res[f"G_{c}ch"] = lib.track_scan_channels_per_block(c)
+    res.update(_k2_times(x[0], u2))
+    res.update(_loop_s(st, x, u2))
+    res.update(_p5_times())
+    return res
+
+
+def _k2_times(epoch, u2) -> dict:
+    """K2's device time per call (ms) at 4 and 32 channels on one epoch,
+    at seeded code phases, Dopplers and carrier phases."""
+    import numpy as np
+    import torch
+
+    from stm32f4_sdr_gps_torch.config import BASEBAND_PLAN
+    from stm32f4_sdr_gps_torch.ops import epl
+    from stm32f4_sdr_gps_torch.probes.common import queued_ms
+
+    rng = np.random.default_rng(9)
+    res = {}
+    for c in (4, 32):
+        cp, dop, ph = (torch.as_tensor(a, device=u2.device) for a in (
+            rng.uniform(0, 1023, c).astype(np.float32),
+            rng.uniform(-5000, 5000, c).astype(np.float32),
+            rng.uniform(0, 1, c).astype(np.float32)))
+        table = u2[:c].contiguous()
+
+        def call():
+            return epl.epl_correlate_cuda(epoch, table, cp, dop, ph,
+                                          BASEBAND_PLAN.sample_rate_hz)
+
+        for _ in range(500):
+            call()
+        res[f"k2_ms_{c}ch"] = queued_ms(call, 5, 500)
+    return res
+
+
+def _loop_s(st, x, u2) -> dict:
+    """Seconds of host clock for the per-epoch half-chip loop with K2 over
+    the scenario's 1000 epochs at 32 channels (after 20 epochs that warm
+    it up)."""
+    import time
+
+    import torch
+
+    from stm32f4_sdr_gps_torch.config import BASEBAND_PLAN, TrackConfig
+    from stm32f4_sdr_gps_torch.track.scan import track_block
+
+    cfg = TrackConfig(codes_in_bit=CIB, use_pallas=True,
+                      in_kernel_scan=False)
+    track_block(st, x[:20], u2, BASEBAND_PLAN, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    track_block(st, x, u2, BASEBAND_PLAN, cfg)
+    torch.cuda.synchronize()
+    return {"loop_s_32ch": time.perf_counter() - t0}
+
+
+def _p5_times() -> dict:
+    """P5's device time per launch (ms) at T = 1600, both variants."""
+    import torch
+
+    from stm32f4_sdr_gps_torch.probes import corr_bank as cb
+    from stm32f4_sdr_gps_torch.probes.common import queued_ms
+
+    res = {}
+    for variant, args in cb.device_inputs(torch.device("cuda")).items():
+        fn = cb.KERNELS[variant]
+        for _ in range(20):
+            fn(*args, 1600)
+        res[f"p5_{variant}_ms"] = queued_ms(lambda: fn(*args, 1600), 5, 10,
+                                            20_000_000)
     return res
 
 

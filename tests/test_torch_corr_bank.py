@@ -1,7 +1,9 @@
 """The correlator-bank probe (the JAX package's TPU probe P5) in the port,
 on the CPU: both plain torch versions against a numpy statement of
 tools/mxu_corr_probe.py:56-87 on the probe's own inputs
-(default_rng(0), tools/mxu_corr_probe.py:107-116), at a small step count.
+(default_rng(0), tools/mxu_corr_probe.py:107-116), at a small step count;
+the one-call yardsticks (``library_call``) against the plain versions;
+the kernel wrappers' argument checks and scratch shapes.
 
 The JAX probe itself cannot run in a test: at import it arms SIGALRM,
 compiles its kernel for the TPU and parses a profiler trace, so it is
@@ -103,3 +105,76 @@ def test_cli_without_a_card_fails():
         pytest.skip("a CUDA device is present")
     assert cb.main(["corr_bank", "fma", "10"]) == 1
     assert cb.main(["corr_bank", "bogus"]) == 2
+
+
+# The yardsticks' bf16 outputs keep 8 significant bits, so each (row,
+# column) product is within 2^-9 of its value: a masked total over T steps
+# of two rows is within 2 T 2^-9 of the largest product.
+BF16_OUT = 2.0 ** -9
+
+
+@pytest.mark.parametrize("variant", ["fma", "mma"])
+def test_library_call_matches_plain_version(variant):
+    """The yardstick computes the probe's function: its products for all
+    steps in one call, reduced with the mask and summed over the steps
+    and products, equal the plain version (the mma one does the kernel's
+    work, yr_t and yi rows for every step)."""
+    args = cb.device_inputs(torch.device("cpu"))[variant]
+    mask = args[3] if variant == "mma" else None
+    res = cb.library_call(variant, args, STEPS)()
+    want = cb.PLAIN[variant](*args, STEPS).numpy()
+    got = cb.library_totals(variant, res, mask, STEPS).numpy()
+    assert got.shape == (32, 1)
+    if variant == "fma":
+        assert res.shape == (32, 2 * STEPS, 3) and res.dtype == torch.float32
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    else:
+        assert res.shape == (2 * STEPS * 32, 128)
+        assert res.dtype == torch.bfloat16
+        atol = 2 * STEPS * BF16_OUT * float(res.float().abs().max())
+        np.testing.assert_allclose(got, want, rtol=0, atol=atol)
+
+
+def test_library_call_yr_rows_are_half_the_mma_work():
+    args = cb.device_inputs(torch.device("cpu"))["mma"]
+    full = cb.library_call("mma", args, STEPS)().float()
+    yr_only = cb.library_call("mma_yr", args, STEPS)().float()
+    assert yr_only.shape == (STEPS * 32, 128)
+    np.testing.assert_allclose(yr_only.numpy(),
+                               full.reshape(2, STEPS * 32, 128)[0].numpy(),
+                               rtol=2 * BF16_OUT, atol=1e-6)
+
+
+def test_scratch_shapes_cover_the_kernels_ctas():
+    """The wrappers' scratch at the kernels' CTA counts: fma splits each
+    channel's 2048 samples over 8 blocks of 128 threads x 2 samples, mma
+    the K axis over 128 CTAs of 16, each writing its 64 stacked rows."""
+    assert cb.scratch_shape("fma", 32) == (32, cb.FMA_SPLIT) == (32, 8)
+    assert cb.scratch_shape("fma", 5) == (5, 8)
+    assert cb.scratch_shape("mma") == (cb.MMA_CTAS, cb.MMA_ROWS) == (128, 64)
+    assert cb.FMA_SPLIT * 128 * 2 == cb.SP == cb.MMA_CTAS * 16
+    # at the probe's 32 channels: two fma blocks on each of 128 SMs
+    assert cb.FMA_SPLIT * 32 == 2 * cb.MMA_CTAS
+
+
+@pytest.mark.parametrize("variant", ["fma", "mma"])
+def test_kernel_wrappers_check_arguments(variant):
+    args = list(cb.device_inputs(torch.device("cpu"))[variant])
+    n0 = cb.KERNELS[variant].launches
+    bad = args[:]
+    bad[1] = args[1][:16]                             # yi rows
+    with pytest.raises(ValueError, match="yi: want"):
+        cb.KERNELS[variant](*bad, STEPS)
+    with pytest.raises(ValueError, match="steps"):
+        cb.KERNELS[variant](*args, -1)
+    if variant == "mma":
+        # C must be 32; yr must allow float2 loads
+        with pytest.raises(ValueError, match="yr: want"):
+            cb.KERNELS[variant](args[0][:16], args[1][:16], *args[2:], STEPS)
+        odd = torch.empty(32 * 2048 + 1)[1:].view(32, 2048)
+        with pytest.raises(ValueError, match="8-byte"):
+            cb.KERNELS[variant](odd, *args[1:], STEPS)
+    else:
+        with pytest.raises(ValueError, match="rep: want"):
+            cb.KERNELS[variant](*args[:2], args[2].double(), STEPS)
+    assert cb.KERNELS[variant].launches == n0

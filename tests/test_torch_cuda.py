@@ -15,7 +15,8 @@ tests/test_pallas_scan.py:68-117 (kernel vs reference scan in the JAX
 package).  Here the two sides run the same arithmetic and differ only in
 the order of the 2046-sample float32 sums and in sincospif vs cos/sin, so
 the integer decisions must agree exactly on a 48 dBHz signal scenario.
-K2's sums: rtol 1e-4 / atol 1e-3 (tests/test_torch_epl.py says why).
+K2's sums: rtol 1e-4 / atol 1e-3 (tests/test_torch_epl.py says why), and
+bit for bit against the sums K1 emits for the same epoch and state.
 P5's sums: 1e-4 of the largest (float32 sums over T steps of 2048-term
 row sums, in other orders on the two sides).  P6-P8: each probe module's
 ``tolerance`` (its docstring says why), at the check size on the probe's
@@ -354,6 +355,39 @@ def test_receiver_runs_on_epl_kernel(dev):
         assert ch.bit_count > 25, (ch.prn, ch.bit_count)
 
 
+# K1's output slots of ie, qe, ip, qp, il, ql with emit_correlators
+K1_SLOTS = [11, 12, 0, 1, 13, 14]
+
+
+@pytest.mark.parametrize("c", [4, 32, 128])
+@pytest.mark.parametrize("edges", [False, True], ids=["random", "edges"])
+def test_epl_kernel_equals_k1_emitted_sums(dev, c, edges):
+    """K2 adds an epoch's E/P/L in K1's order: with the same (m, ph,
+    dopfs) its sums equal those K1 emits for its first epoch
+    (emit_correlators), bit for bit.  K1 forms dopfs as st.f[DOP] / p.fs,
+    K2 as dop[c] / fs, from the same float32 values."""
+    rng = np.random.default_rng(50 + c + 7 * edges)
+    x = (rng.standard_normal(epl.S)
+         + 1j * rng.standard_normal(epl.S)).astype(np.complex64)
+    u2 = upsampled_code_doubled(
+        ca_table_bipolar([1 + i % 32 for i in range(c)]))
+    cp = (np.resize(np.array(WRAP_EDGES, np.float32), c) if edges
+          else rng.uniform(0, 1023, c).astype(np.float32))
+    dop = rng.uniform(-5000, 5000, c).astype(np.float32)
+    ph = rng.uniform(0, 1, c).astype(np.float32)
+    args = [torch.as_tensor(a, device=dev) for a in (x, u2, cp, dop, ph)]
+    got = torch.view_as_real(epl.epl_correlate_cuda(*args,
+                                                    PLAN.sample_rate_hz))
+    ps = ts.state_from_track_state(init_state(c, cp, dop, device=dev))
+    ps.f32[0], ps.f32[1], ps.f32[2] = args[2], args[3], args[4]
+    _, out = ts.track_scan_cuda(ps, args[0][None], args[1], PLAN,
+                                TrackConfig(emit_correlators=True))
+    torch.cuda.synchronize()
+    want = out[0, K1_SLOTS].T.contiguous()
+    assert torch.equal(got.reshape(c, 6).view(torch.int32),
+                       want.view(torch.int32))
+
+
 @pytest.mark.parametrize("variant", ["fma", "mma"])
 def test_corr_bank_kernel_matches_plain_version(dev, variant):
     args = cb.device_inputs(dev)[variant]
@@ -364,6 +398,33 @@ def test_corr_bank_kernel_matches_plain_version(dev, variant):
     want = cb.PLAIN[variant](*args, 200).cpu().numpy()
     np.testing.assert_allclose(got.cpu().numpy(), want, rtol=0,
                                atol=1e-4 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("steps", [0, 1, 2, 63, 64, 65, 129])
+@pytest.mark.parametrize("variant", ["fma", "mma"])
+def test_corr_bank_kernel_step_counts(dev, variant, steps):
+    """Odd step counts (the mma kernel takes its steps in pairs of
+    register sets) and the edges of its 64-step accumulator flush."""
+    args = cb.device_inputs(dev, seed=steps)[variant]
+    got = cb.KERNELS[variant](*args, steps)
+    torch.cuda.synchronize()
+    want = cb.PLAIN[variant](*args, steps).cpu().numpy()
+    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=0,
+                               atol=1e-4 * max(np.abs(want).max(), 1.0))
+
+
+@pytest.mark.parametrize("variant", ["fma", "mma"])
+def test_corr_bank_library_call_matches_plain_version(dev, variant):
+    """The one-call yardstick computes the probe's function on the card
+    (tests/test_torch_corr_bank.py states the tolerances)."""
+    args = cb.device_inputs(dev)[variant]
+    res = cb.library_call(variant, args, 8)()
+    got = cb.library_totals(variant, res, args[3] if variant == "mma"
+                            else None, 8).cpu().numpy()
+    want = cb.PLAIN[variant](*args, 8).cpu().numpy()
+    atol = (1e-3 if variant == "fma"
+            else 2 * 8 * 2.0 ** -9 * float(res.float().abs().max()))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=atol)
 
 
 FOREST = {"P6": forest_chain, "P7": forest_constructs, "P8": forest_layout}

@@ -5,8 +5,10 @@ in the port, on the CPU.
   mode, on random phases and on the code-phase wrap edges of
   tests/test_pallas.py:57;
 * the g++ host build of the CUDA kernel's arithmetic (csrc/epl.cu via
-  csrc/kernels_host.cpp) against the plain version, and the per-epoch
-  tracking loop driven through it;
+  csrc/kernels_host.cpp) against the plain version and the JAX kernel,
+  bit for bit against the E/P/L the host build of the tracking scan (K1)
+  emits for the same epoch and state (both add in K1's order), and the
+  per-epoch tracking loop driven through it;
 * the dispatcher: CPU tensors run the plain version, the CUDA wrapper
   refuses CPU tensors, and the use_pallas branch of track_epoch_step
   goes through the dispatcher.
@@ -157,3 +159,46 @@ def test_per_epoch_loop_on_host_build_matches_plain_version(monkeypatch):
                                out_p.doppler_hz.numpy(), atol=1e-2)
     np.testing.assert_allclose(st_h.code_phase_chips.numpy(),
                                st_p.code_phase_chips.numpy(), atol=1e-3)
+
+
+# K1's output slots of ie, qe, ip, qp, il, ql with emit_correlators
+K1_SLOTS = [11, 12, 0, 1, 13, 14]
+
+
+def _k1_epoch_sums(scan, x, u2, cp, dop, ph):
+    """One epoch's six E/P/L sums as the tracking scan ``scan`` emits them
+    (emit_correlators, T = 1) from a state with code phase cp, Doppler
+    dop and carrier phase ph: (C, 6) float32."""
+    from stm32f4_sdr_gps_torch.ops.track_scan import state_from_track_state
+
+    ps = state_from_track_state(init_state(
+        u2.shape[0], cp.numpy(), dop.numpy()))
+    ps.f32[0], ps.f32[1], ps.f32[2] = cp, dop, ph
+    _, out = scan(ps, x[None], u2, BASEBAND_PLAN,
+                  TrackConfig(emit_correlators=True))
+    return out[0, K1_SLOTS].T
+
+
+@pytest.mark.parametrize("c,edges", CASES, ids=IDS)
+def test_host_build_equals_k1_sums(c, edges):
+    """K2's host build adds an epoch's E/P/L in the tracking scan's order
+    (kernels_host.cpp k1_sums): its sums equal those the host build of K1
+    emits for the same (m, ph, dopfs), bit for bit."""
+    from stm32f4_sdr_gps_torch.ops.track_scan import track_scan_host
+
+    x, u2, cp, dop, ph = _torch(*_inputs(c, seed=300 + c, edges=edges))
+    got = torch.view_as_real(epl.epl_correlate_host(x, u2, cp, dop, ph, FS))
+    want = _k1_epoch_sums(track_scan_host, x, u2, cp, dop, ph)
+    assert torch.equal(got.reshape(c, 6).view(torch.int32),
+                       want.contiguous().view(torch.int32))
+
+
+@pytest.mark.parametrize("c,edges", [(6, False), (32, True)],
+                         ids=["6ch", "edges_32ch"])
+def test_host_build_matches_jax_kernel(c, edges):
+    x, u2, cp, dop, ph = _inputs(c, seed=400 + c, edges=edges)
+    want = np.asarray(epl_correlate_pallas(
+        jnp.asarray(x), jnp.asarray(u2), jnp.asarray(cp), jnp.asarray(dop),
+        jnp.asarray(ph), FS, interpret=True))
+    got = epl.epl_correlate_host(*_torch(x, u2, cp, dop, ph), FS)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
