@@ -11,9 +11,9 @@ before the result line):
    scan (K1), the per-epoch E/P/L correlator (K2), the correlator-bank
    probe (P5), the epoch-cost probes (P6-P8) and the roll probes (P1-P4);
    fails unless ptxas reports all 8 instantiations of K1's
-   track_scan_kernel, and every kernel of the P5 and K2 libraries, with
-   0 bytes of stack frame and no spills (their registers, stack and
-   spills go into the kernels line);
+   track_scan_kernel, and every kernel of the P5, K2 and P6-P8
+   libraries, with 0 bytes of stack frame and no spills (their
+   registers, stack and spills go into the kernels line);
 3. K1 vs its plain version on the card: the tracking scan on 32 channels
    (PRNs 1-32 at 48 dBHz, seeded Doppler and code phase, 3 codes per
    bit) over 1000 epochs, and on the main path's 4-channel shape, held to
@@ -71,12 +71,20 @@ before the result line):
    version on the card (fused steps, P7 and the sums rtol 1e-5, sincos
    atol 1e-5 besides; selects, int ops, transposes and the barrel exact)
    with finite outputs; each variant's kernel and plain-version time per
-   launch there; then the three entry points at full size (C = 32 and 4
+   launch there; the three col variants at C = 32 and 4 bit for bit
+   against the host build of their decomposition (``layout_col_host``:
+   the same slabs, halo and summation order); then the three entry
+   points at full size (C = 32 and 4
    at G = 128, and C = 32 at G = 64 to show the time scales with G; P7
    also on finite values, and its barrier variants at C = 256), which
    print ns per iteration per variant (the device time of launches queued
    behind a device sleep) and P7's deltas over base, and must launch
-   every kernel;
+   every kernel; every col variant's time per iteration at G = 64 must lie
+   within 0.95-1.10 of its time at G = 128 (every iteration's work is
+   done); then ``cuobjdump -sass`` of the P6-P8 library: for each
+   col_kernel instantiation the MEMBAR.*.GPU, CCTL.IVALL and cluster
+   barrier (CGABAR) instructions, none of which may lie inside a loop or
+   outnumber what the kernel's entry and exit cluster barriers compile to;
 10. P1-P4, every case (P1 at 4352 and 2176 lanes, both signs; P2; P3;
    P4 both signs) at 8, 32 and 128 rows on the tools' inputs and on
    seeded ones, held to its plain version bit for bit; the device time
@@ -183,7 +191,30 @@ def build():
     # ptxas warns when it has to serialise the mma kernel's wgmmas
     ptxas["wgmma_serialized"] = "serialized" in kernel_lib.build_info[
         "corr_bank_cuda"]["log"]
+    log = kernel_lib.build_info["forest_cuda"]["log"]
+    every = kernel_lib.ptxas_report(log, "")
+    bad = [k for k in every if k["stack"] or k["spill_stores"]
+           or k["spill_loads"]]
+    if not every or bad:
+        fail(f"forest_cuda: ptxas reports {len(every)} kernels, with a stack "
+             f"frame or spills: {bad}")
+    for name, kernels in FOREST_KERNELS.items():
+        rec = [k for kern in kernels
+               for k in kernel_lib.ptxas_report(log, kern)]
+        if not rec:
+            fail(f"forest_cuda: ptxas reports no {kernels}")
+        ptxas[name] = _ptxas_record(rec)
+    print(f"[build] forest_cuda: all {len(every)} kernels (P6-P8) with 0 "
+          "bytes of stack frame and no spills; registers "
+          f"{ {n: ptxas[n]['registers'] for n in FOREST_KERNELS} } (most "
+          "of any instantiation)")
     return ptxas
+
+
+# the forest library's kernels of each probe, as ptxas names them
+FOREST_KERNELS = {"forest_chain": ("chain_kernel",),
+                  "forest_constructs": ("constructs_kernel",),
+                  "forest_layout": ("tr_kernel", "row_kernel", "col_kernel")}
 
 
 def _ptxas_record(report):
@@ -863,6 +894,25 @@ def forest():
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                      "library_ms": None, "check_ms": check_ms}
 
+    # the col kernels against the host build of their decomposition (the
+    # same channel groups, slabs, halo and summation order): bit for bit
+    from stm32f4_sdr_gps_torch.probes import forest_layout as p8
+
+    for v in ("wide_col", "red_col", "roll_col"):
+        for c in (32, 4):
+            for which in ("probe", "seeded"):
+                args = p8.check_args(v, which, dev, c)
+                got = p8.layout_cuda(*args)
+                want = p8.layout_col_host(*(a.cpu() if isinstance(
+                    a, torch.Tensor) else a for a in args))
+                if not all(torch.equal(g.cpu(), w)
+                           for g, w in zip(got, want)):
+                    fail(f"forest_layout {v} at C = {c} ({which} inputs): "
+                         "the kernel differs from the host build of its "
+                         "decomposition")
+    print("[forest] wide_col, red_col, roll_col at C = 32 and 4 on both "
+          "input sets: bit for bit the host build of the col decomposition")
+
     _reset_counts()
     full = {}
     for mod, name, _ in _forest_probes():
@@ -897,9 +947,131 @@ def forest():
         ratio = {v: round(ns64[v] / ns128[v], 3) for v in ns128}
         print(f"[forest] {name}: ns/iter at G = 64 over G = 128 (1.0: the "
               f"time scales with G): {ratio}")
+        # the col kernels must do every iteration's work
+        off = {v: r for v, r in ratio.items()
+               if v.endswith("_col") and not 0.95 <= r <= 1.10}
+        if off:
+            fail(f"{name}: G = 64 over G = 128 outside 0.95-1.10: {off}")
         res[name].update(launches=launches, ns_per_iter=ns128,
                          ns_per_iter_g64=ns64, ns_per_iter_4ch=ns4)
+    res["forest_layout"]["sass_col"] = col_sass()
     print(f"[forest] phase 9 in {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+# SASS of one cluster barrier (barrier.cluster.arrive.release + wait.
+# acquire, cluster.sync): the fence, the arrive and the wait, the L1
+# invalidate; and how many each col variant has (after the mbarrier init
+# and before exit; none for wide_col, which exchanges nothing)
+CLUSTER_BARRIER_SASS = {"membar_gpu": 1, "cctl_ivall": 1, "cluster_barrier": 2}
+COL_CLUSTER_BARRIERS = {3: 2, 5: 2, 7: 2}     # WIDE_COL, RED_COL, ROLL_COL
+
+
+def _sass_kind(ins):
+    """Which counted class a SASS instruction falls in, or None."""
+    words = ins.split()
+    if words and words[0].startswith("@"):       # a predicate
+        words = words[1:]
+    op = words[0] if words else ""
+    if op.startswith("MEMBAR") and ".GPU" in op:
+        return "membar_gpu"
+    if op.startswith("CCTL") and "IVALL" in op:
+        return "cctl_ivall"
+    if "CGABAR" in op:
+        return "cluster_barrier"
+    return None
+
+
+def _successors(ins):
+    """For one SASS function given as (address, text) pairs, each
+    instruction's successors: the next one (unless it is an unconditional
+    BRA, EXIT or RET) and a branch's target."""
+    import re
+
+    index = {a: i for i, (a, _) in enumerate(ins)}
+    succ = []
+    for i, (_, text) in enumerate(ins):
+        words = text.split()
+        pred = bool(words) and words[0].startswith("@")
+        op = (words[1:] if pred else words)[:1] or [""]
+        nxt = []
+        tgt = re.search(r"0x([0-9a-f]+)\s*$", text)
+        if op[0].startswith("BRA") and tgt and int(tgt[1], 16) in index:
+            nxt.append(index[int(tgt[1], 16)])
+        if not ((op[0] == "BRA" and not pred and "," not in text)
+                or (op[0] in ("EXIT", "RET", "RET.REL") and not pred)):
+            nxt.append(i + 1)
+        succ.append([j for j in nxt if j < len(ins)])
+    return succ
+
+
+def _on_cycle(succ, i):
+    """Whether instruction i can reach itself: it lies in a loop."""
+    seen, todo = set(), list(succ[i])
+    while todo:
+        j = todo.pop()
+        if j == i:
+            return True
+        if j not in seen:
+            seen.add(j)
+            todo.extend(succ[j])
+    return False
+
+
+def col_sass():
+    """``cuobjdump -sass`` of the forest library: for each col_kernel
+    instantiation, its MEMBAR.*.GPU, CCTL.IVALL and cluster-barrier
+    (CGABAR) instructions, in all and inside a loop (able to reach
+    themselves in the kernel's control flow, ``_on_cycle``).  Fails if any lies in a loop or there
+    are more than the design's entry and exit barriers compile to."""
+    import re
+    import shutil
+
+    from stm32f4_sdr_gps_torch.ops import kernel_lib
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass",
+                           kernel_lib.build_info["forest_cuda"]["path"]],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    funcs, cur = {}, None
+    for line in sass.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            kern = re.search(r"col_kernelILi(\d+)ELi(\d+)E", head.group(1))
+            cur = (int(kern[1]), int(kern[2])) if kern else None
+            if cur:
+                funcs[cur] = []
+            continue
+        op = re.search(r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;", line)
+        if cur is not None and op:
+            funcs[cur].append((int(op.group(1), 16), op.group(2)))
+    if len(funcs) != 12:
+        fail(f"SASS: {len(funcs)} col_kernel instantiations, want 12")
+    res = {}
+    names = {3: "wide_col", 5: "red_col", 7: "roll_col"}
+    for (v, cg), ins in sorted(funcs.items()):
+        succ = _successors(ins)
+        count = dict.fromkeys(CLUSTER_BARRIER_SASS, 0)
+        in_loop = dict.fromkeys(CLUSTER_BARRIER_SASS, 0)
+        for i, (_, text) in enumerate(ins):
+            kind = _sass_kind(text)
+            if kind:
+                count[kind] += 1
+                in_loop[kind] += _on_cycle(succ, i)
+        most = {k: n * COL_CLUSTER_BARRIERS[v]
+                for k, n in CLUSTER_BARRIER_SASS.items()}
+        label = f"{names[v]} CG={cg}"
+        loop = any(_on_cycle(succ, i) for i in range(len(ins)))
+        print(f"[forest] SASS {label}: {len(ins)} instructions; {count} "
+              f"(design at most {most}), inside a loop {in_loop}")
+        if not loop:
+            fail(f"SASS {label}: no loop found")
+        if any(in_loop.values()) or any(count[k] > most[k] for k in count):
+            fail(f"SASS {label}: {count} / in a loop {in_loop} beyond the "
+                 f"entry and exit barriers ({most})")
+        res[label] = {"counts": count, "in_loop": in_loop,
+                      "design_most": most}
     return res
 
 
@@ -1125,6 +1297,7 @@ def main():
         "route": "cuda",
         "source": src + "forest.cu",
         **r,
+        **ptxas[name],
     } for name, r in forest_res.items()] + [
         roll_entry("roll_dyn", "dyn_roll_cuda",
                    ["dynu2_neg", "dynu2_pos", "dynwin_neg", "dynwin_pos"],

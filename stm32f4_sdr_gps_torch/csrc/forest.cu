@@ -21,17 +21,28 @@
 // rate of one warp (one instruction per cycle) from eight chains up.
 //
 // P7, constructs_kernel.  One thread per channel, all C channels in one
-// block (C <= 1024).  The 13 + 13 state planes live in shared memory, as
-// the TPU kept them in VMEM scratch, and are read and written through
-// volatile pointers, so every iteration loads and stores them as the
-// probe's base body does.  when_any / when_any4 are __syncthreads_or, a
-// block barrier; concat16 and dynstore are 64-byte global stores per
-// channel per iteration (__stcg, which nvcc does not drop); stack13
-// writes the 13 planes.  Bound: latency of the one serial chain per
-// thread, plus whatever the construct adds; this is the per-epoch serial
-// work of thread 0 in track_scan.cu.  The IEEE divide and cosf / sinf are
-// value-dependent (slow paths for inf, NaN and, in sinf, arguments past
-// 1e5), so probes/forest_constructs.py also times P7 on finite values.
+// block (C <= 1024).  Bound: the latency of the one serial chain per
+// thread, four dependent FFMAs an iteration (~11 ns at P6's dependent
+// pair), plus whatever the construct adds; this is the per-epoch serial
+// work of the update warp in track_scan.cu.  So the state takes the form
+// the tracking kernel gives its ChanState (track_epoch.cuh): the 13 + 13
+// planes live in registers, indexed only by compile-time constants,
+// loaded once and written to st / sti once.  An empty asm (opaque) hands
+// each iteration's a, b, ia, ib to the body as values nvcc cannot see
+// through, and takes each dead result (when_any's store, stack13's
+// planes) from it, so nvcc neither hoists a construct of an unchanged
+// value (lcg of ia) out of the loop nor sinks a plane that the body
+// overwrites: every iteration does the probe's work, as the TPU's VMEM
+// stores forced it to.  when_any / when_any4 are a warp vote (__any_sync
+// over the block's lanes) when the block is one warp (C <= 32), the vote
+// a one-warp update uses, and __syncthreads_or, a block barrier, past
+// it; concat16 and dynstore are 64-byte global stores per channel per
+// iteration (__stcg, which nvcc does not drop).  sincos takes sin and cos
+// from trig_f (forest_ops.cuh, within 2 ulp, registers only: CUDA's sinf
+// and cosf keep the 2/pi words of their Payne-Hanek path in a local
+// array, a 32-byte stack frame).  The IEEE divide and sin / cos are
+// value-dependent (slow paths for inf, NaN and arguments past 105615), so
+// probes/forest_constructs.py also times P7 on finite values.
 //
 // P8, three kernels for the two layouts of a channel's 2048 samples.
 // * tr_kernel (tr6, tr2): one block; thread c holds channel c's 8 planes
@@ -45,27 +56,60 @@
 //   roll_row reads the row shifted in shared memory, with a select per
 //   channel: two barriers per barrel stage.
 // * col_kernel (wide_col, red_col, roll_col): the (2048, C) plane
-//   sample-major with lane = channel (C divides 32), split into 8 slices
-//   of 256 samples held in the shared memory of the 8 blocks of one
-//   thread-block cluster; warps split a slice's samples.  red_col sums
-//   per thread, then across the lanes of one channel, the warps in order
-//   and the cluster's blocks in rank order (distributed shared memory);
-//   roll_col reads the shifted element from whichever block holds it:
-//   two cluster barriers per barrel stage.
-// Bound: barrier latency per stage, and the 14 fma passes' issue rate for
-// wide.  A cluster barrier (cluster.sync) compiles to MEMBAR.ALL.GPU, the
-// cluster arrive / wait and an L1 invalidate (CCTL.IVALL), which makes
-// the col kernels several times slower than the row kernels, whose block
-// barriers cost ~40 ns.  red_* reduce an unchanged plane every iteration:
-// they read it from shared memory behind a barrier each time, so nvcc
-// cannot hoist the reduction out of the loop (the time per iteration is
-// the same at G = 64 and 128).
+//   sample-major with lane = channel (C divides 32).  A grid of clusters
+//   of COL_RANKS = 8 blocks: cluster g takes the CG = min(C, 8) channels
+//   [g CG, g CG + CG), rank r of it their samples [256 r, 256 r + 256),
+//   staged into its shared memory by coalesced loads (element e = tid +
+//   256 i of the (256, CG) slab is sample e / CG, channel tid % CG).  CG =
+//   8 gives a channel 256 threads, as row_kernel does, and C = 32 32
+//   blocks, each on an SM of its own (launch_col), as row_kernel's.
+//   - wide_col: the 14 passes in registers, no exchange.
+//   - red_col: each rank sums its slab per thread, then over the lanes of
+//     one channel (lane ^ 16, ^ 8, ..., ^ CG) and its warps in order.
+//     Ranks 1-7 push their 6 x CG sums into rank 0's slot for the
+//     iteration's parity with st.async.shared::cluster.mbarrier::
+//     complete_tx::bytes, which completes on rank 0's mbarrier for that
+//     slot; rank 0 arms it with mbarrier.arrive.expect_tx, waits with
+//     mbarrier.try_wait.parity, adds the ranks in rank order, and lane b
+//     of its first warp frees the slot with a remote
+//     mbarrier.arrive.shared::cluster (address by mapa) on rank b's own
+//     barrier, which rank b waits on before it writes that slot again,
+//     two iterations later.
+//   - roll_col: the four stages shift by HALO = 1 + 2 + 4 + 8 = 15 samples
+//     in all, so rank r needs only the first 15 rows of rank r + 1's slab
+//     (cyclically).  At the end of each iteration rank r pushes its new
+//     first 15 rows into rank r - 1's halo slot by the same scheme (parity
+//     double buffer; the receiver frees a slot after its first stage has
+//     read it), and the stages run locally on slab + halo with a
+//     shrinking ghost zone (270, 268, 264, 256 valid rows), each with
+//     roll_row's two block barriers.  Every stage computes where(m,
+//     roll(w), w) on every element, reading the element the mask selects,
+//     as roll_row does.
+//   The only cluster barriers are one after the mbarrier init and one
+//   before exit (no block may leave while another may still write its
+//   shared memory); chip_smoke.py counts them in the SASS.
+// Bound: barrier and exchange latency per iteration for red and roll
+// (their bytes and operations take ns), the 14 fma passes' issue rate for
+// wide.  A block barrier costs ~40 ns.  A cluster barrier (cluster.sync)
+// compiles to MEMBAR.ALL.GPU, the cluster arrive / wait and an L1
+// invalidate (CCTL.IVALL): with one in every reduction and two in every
+// barrel stage, red_col and roll_col took 3.9 and 7.8 us an iteration at
+// C = 32 on the H100 80GB HBM3 at 700 W, against red_row's 0.45 and
+// roll_row's 0.29.  The point-to-point stores above complete on the
+// receiver's mbarrier, with no fence and no cache invalidate: on the same
+// card red_col and roll_col take 0.74 and 0.54 us an iteration at C = 32
+// (0.69 and 0.39 at C = 4), a halo hop ~0.15 us (probes/col_parts.py
+// times them without the exchange).  red_*
+// reduce an unchanged plane every iteration: they read it from shared
+// memory behind a barrier each time, so nvcc cannot hoist the reduction
+// out of the loop (the time per iteration is the same at G = 64 and 128).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // -fmad=false -shared -Xcompiler -fPIC (ops/kernel_lib.py).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "forest_ops.cuh"
 
@@ -79,11 +123,6 @@ constexpr int CHAIN_THREADS = 32;
 constexpr int ROW_THREADS = 256;
 constexpr int ROW_WARPS = ROW_THREADS / 32;
 constexpr int ROW_PER = SP / ROW_THREADS;      // samples per thread
-constexpr int CLUSTER = 8;
-constexpr int COL_THREADS = 256;
-constexpr int COL_WARPS = COL_THREADS / 32;
-constexpr int COL_SAMPLES = SP / CLUSTER;      // samples per block
-constexpr size_t DEFAULT_SMEM = 48 * 1024;
 
 int invalid() { return static_cast<int>(cudaErrorInvalidValue); }
 
@@ -99,32 +138,45 @@ chain_kernel(const float* __restrict__ x, float* __restrict__ out, int C,
 
 // ---------------------------------- P7 ------------------------------------
 
-template <int V>
-__global__ void constructs_kernel(const float* __restrict__ x,
-                                  float* __restrict__ out,
-                                  float* __restrict__ st_out,
-                                  int* __restrict__ sti_out, int C, int G) {
-    extern __shared__ float smem[];
-    volatile float* S = smem;                                     // (13, C)
-    volatile int* SI = reinterpret_cast<volatile int*>(smem + NP * C);
+// v passes through an empty asm: nvcc must have it in a register here and
+// cannot see its value on the other side.
+__device__ __forceinline__ void opaque(float& v) { asm volatile("" : "+f"(v)); }
+__device__ __forceinline__ void opaque(int& v) { asm volatile("" : "+r"(v)); }
+
+// WARP: the block is one warp (C <= 32), and when_any votes over it.
+template <int V, bool WARP>
+__global__ void __launch_bounds__(1024)
+constructs_kernel(const float* __restrict__ x, float* __restrict__ out,
+                  float* __restrict__ st_out, int* __restrict__ sti_out,
+                  int C, int G) {
     const int c = threadIdx.x;
+    float s[NP];
+    int si[NP];
+#pragma unroll
     for (int p = 0; p < NP; ++p) {
-        const float v = x[p * C + c];
-        S[p * C + c] = v;
-        SI[p * C + c] = (int)v;
+        s[p] = x[p * C + c];
+        si[p] = (int)s[p];
     }
+    const unsigned lanes = C >= 32 ? 0xffffffffu : (1u << C) - 1u;
     for (int g = 0; g < G; ++g) {
         for (int e = 0; e < ITERS; ++e) {
-            float a = S[c], b = S[C + c];
-            int ia = SI[c];
-            const int ib = SI[C + c];
+            float a = s[0], b = s[1];
+            int ia = si[0], ib = si[1];
+            opaque(a);
+            opaque(b);
+            opaque(ia);
+            opaque(ib);
             epoch_pairs(a, b);
-            if constexpr (V == WHEN_ANY) {
-                if (__syncthreads_or(any_guard(a, b, 0))) S[c] = a + 1.0f;
-            } else if constexpr (V == WHEN_ANY4) {
+            if constexpr (V == WHEN_ANY || V == WHEN_ANY4) {
 #pragma unroll
-                for (int j = 0; j < 4; ++j)
-                    if (__syncthreads_or(any_guard(a, b, j))) S[c] = a + 1.0f;
+                for (int j = 0; j < (V == WHEN_ANY ? 1 : 4); ++j) {
+                    const bool guard = any_guard(a, b, j);
+                    bool any;
+                    if constexpr (WARP) any = __any_sync(lanes, guard);
+                    else any = __syncthreads_or(guard);
+                    if (any) s[0] = a + 1.0f;
+                    opaque(s[0]);
+                }
             } else if constexpr (V == CONCAT16 || V == DYNSTORE) {
                 const int row = V == DYNSTORE ? g : 0;
                 float4* o = reinterpret_cast<float4*>(
@@ -141,25 +193,37 @@ __global__ void constructs_kernel(const float* __restrict__ x,
                 }
             } else if constexpr (V == STACK13) {
 #pragma unroll
-                for (int p = 0; p < NP; ++p) S[p * C + c] = a * stack_scale(p);
+                for (int p = 0; p < NP; ++p) {
+                    s[p] = a * stack_scale(p);
+                    opaque(s[p]);
+                }
             } else {
                 own_construct<V>(a, b, ia, ib);
             }
-            S[c] = a;
-            S[C + c] = b;
-            if constexpr (V == IMOD4) SI[c] = ia;
+            s[0] = a;
+            s[1] = b;
+            if constexpr (V == IMOD4) si[0] = ia;
         }
     }
     // after the last step, row 0 of the output is st[0] (forest_probe2.py:
     // 144-146)
-    const float a = S[c];
     float4* o = reinterpret_cast<float4*>(out + (size_t)c * NOUT);
 #pragma unroll
-    for (int q = 0; q < NOUT / 4; ++q) o[q] = make_float4(a, a, a, a);
+    for (int q = 0; q < NOUT / 4; ++q) o[q] = make_float4(s[0], s[0], s[0], s[0]);
+#pragma unroll
     for (int p = 0; p < NP; ++p) {
-        st_out[p * C + c] = S[p * C + c];
-        sti_out[p * C + c] = SI[p * C + c];
+        st_out[p * C + c] = s[p];
+        sti_out[p * C + c] = si[p];
     }
+}
+
+template <int V, bool WARP>
+int launch_constructs(const void* x, void* out, void* st, void* sti, int C,
+                      int G, cudaStream_t s) {
+    constructs_kernel<V, WARP><<<1, C, 0, s>>>(
+        static_cast<const float*>(x), static_cast<float*>(out),
+        static_cast<float*>(st), static_cast<int*>(sti), C, G);
+    return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------- P8 ------------------------------------
@@ -257,125 +321,329 @@ row_kernel(const float* __restrict__ x, const float* __restrict__ w,
         wst[(size_t)c * SP + tid + i * ROW_THREADS] = r[i];
 }
 
-// CT = C channels; element e = tid + 256 i of a block's (256, CT) slice is
-// sample e / CT of the slice, channel e % CT = tid % CT.
-template <int V, int CT>
-__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(COL_THREADS)
+// The exchange between the blocks of a cluster: mbarriers in shared
+// memory, stores into another block's shared memory that complete on its
+// mbarrier, and arrivals on another block's mbarrier.
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// the shared::cluster address of `p` (this block's shared memory) in the
+// block of cluster rank `rank`
+__device__ __forceinline__ uint32_t remote_addr(const void* p, int rank) {
+    uint32_t r;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+                 : "=r"(r) : "r"(smem_addr(p)), "r"(rank));
+    return r;
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                 :: "r"(smem_addr(bar)) : "memory");
+}
+
+// this phase's arrival, and the bytes that must land before it completes
+__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+                 :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ bool bar_try(uint64_t* bar, uint32_t parity) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+    return done;
+}
+
+// Wait until the phase of the given parity has completed.  A wait past
+// ~2^33 cycles (seconds; a launch takes ms) means a lost arrival: trap,
+// so the launch fails instead of hanging the card.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+    if (bar_try(bar, parity)) return;
+    const long long t0 = clock64();
+    while (!bar_try(bar, parity))
+        if (clock64() - t0 > (1ll << 33)) __trap();
+}
+
+// arrive on the mbarrier at shared::cluster address `bar` (another block's)
+__device__ __forceinline__ void bar_arrive_remote(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];"
+                 :: "r"(bar) : "memory");
+}
+
+// store into another block's shared memory; the bytes count towards the
+// current phase of its mbarrier `bar` (both shared::cluster addresses)
+__device__ __forceinline__ void push1(uint32_t dst, float v, uint32_t bar) {
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 "
+        "[%0], %1, [%2];"
+        :: "r"(dst), "r"(__float_as_uint(v)), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void push4(uint32_t dst, float a, float b,
+                                      float c, float d, uint32_t bar) {
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 "
+        "[%0], {%1, %2, %3, %4}, [%5];"
+        :: "r"(dst), "r"(__float_as_uint(a)), "r"(__float_as_uint(b)),
+           "r"(__float_as_uint(c)), "r"(__float_as_uint(d)), "r"(bar)
+        : "memory");
+}
+
+__device__ __forceinline__ void push2(uint32_t dst, float a, float b,
+                                      uint32_t bar) {
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 "
+        "[%0], {%1, %2}, [%3];"
+        :: "r"(dst), "r"(__float_as_uint(a)), "r"(__float_as_uint(b)),
+           "r"(bar)
+        : "memory");
+}
+
+// roll_col's elements a thread: every stage computes the first
+// ghost_ni() * 256 elements of the ghost zone, >= col_extent(0) * CG, with
+// no guard; a row past a stage's extent is never read into a row within
+// the next stage's
+template <int CG>
+__host__ __device__ constexpr int ghost_ni() {
+    return (col_extent(0) * CG + COL_THREADS - 1) / COL_THREADS;
+}
+
+// shared floats of roll_col's ghost zone: every row a stage may read
+template <int CG>
+__host__ __device__ constexpr int ghost_floats() {
+    return ghost_ni<CG>() * COL_THREADS + (1 << (BARREL_STAGES - 1)) * CG;
+}
+
+// the col kernels' mbarriers: FULL[p] completes when slot p has landed,
+// FREE[p] when its reader has released it (p: the iteration's parity)
+constexpr int FULL = 0, FREE = 2;
+
+// roll_col: rows 0..14 of the slab, elements tid < HALO * CG, go to rank
+// `left`'s halo slot for iteration j (parity j & 1), once that rank has
+// read the slot's previous use (at once for j = 0, 1)
+template <int CG>
+__device__ __forceinline__ void push_halo(uint64_t* bars,
+                                          float (*halo)[HALO * CG],
+                                          int left, int j, float val) {
+    const int p = j & 1;
+    bar_wait(&bars[FREE + p], ((uint32_t)(j >> 1) & 1u) ^ 1u);
+    push1(remote_addr(&halo[p][threadIdx.x], left), val,
+          remote_addr(&bars[FULL + p], left));
+}
+
+// roll_col's barrel stage S on the ghost zone s_w: element e becomes
+// where(m, e + 2^S rows, e), read from the element the mask selects, as
+// roll_row does; stage 0 takes rows 256..270 from the halo slot `halo`.
+// Two block barriers, as roll_row.  The thread's elements e = tid + 256 i
+// end in t (the last stage's first CG are the slab's).
+template <int S, int CG>
+__device__ __forceinline__ void roll_stage(float* s_w, const float* halo,
+                                           bool m, float (&t)[ghost_ni<CG>()]) {
+    constexpr int N = ghost_ni<CG>();
+    constexpr int SH = (1 << S) * CG;
+    const int tid = threadIdx.x;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+        const int e = tid + i * COL_THREADS;
+        const int k = m ? e + SH : e;
+        if constexpr (S == 0) {
+            const bool in_halo = k >= COL_SAMPLES * CG && k < GHOST * CG;
+            t[i] = (in_halo ? halo - COL_SAMPLES * CG : s_w)[k];
+        } else {
+            t[i] = s_w[k];
+        }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < N; ++i) s_w[tid + i * COL_THREADS] = t[i];
+    __syncthreads();
+}
+
+// CG channels a cluster (see the note at the top).  Shared slots and
+// mbarriers: red_col's (2 parities) x (8 ranks) x (CG channels) x 8 floats
+// (6 sums, 32-byte rows for the v4 store) at rank 0, FULL[p] there and
+// FREE[p] at ranks 1-7; roll_col's (2 parities) x (HALO x CG) halo and its
+// FULL[p] / FREE[p] at every rank.
+template <int V, int CG>
+__global__ void __cluster_dims__(COL_RANKS, 1, 1) __launch_bounds__(COL_THREADS)
 col_kernel(const float* __restrict__ x, const float* __restrict__ w,
-           float* __restrict__ st, float* __restrict__ wst, int G) {
-    __shared__ float s_w[COL_SAMPLES * CT];
-    __shared__ float s_part[2][COL_WARPS][6][CT];
-    __shared__ float s_blk[2][6][CT];
+           float* __restrict__ st, float* __restrict__ wst, int C, int G) {
+    constexpr int WF = V == WIDE_COL ? 1
+                       : V == RED_COL ? COL_SAMPLES * CG : ghost_floats<CG>();
+    __shared__ __align__(16) float s_w[WF];
+    __shared__ float s_part[V == RED_COL ? 2 : 1][COL_WARPS][6][CG];
+    __shared__ __align__(16) float
+        s_slot[V == RED_COL ? 2 : 1][COL_RANKS][CG][8];
+    __shared__ float s_halo[V == ROLL_COL ? 2 : 1][HALO * CG];
+    __shared__ __align__(8) uint64_t s_bar[4];
     cg::cluster_group cluster = cg::this_cluster();
     const int rank = static_cast<int>(cluster.block_rank());
+    const int ch0 = blockIdx.x / COL_RANKS * CG;
     const int tid = threadIdx.x;
     const int warp = tid >> 5, lane = tid & 31;
-    const int c = tid % CT;
-    const bool owner = rank == 0 && tid < CT;        // st[:, tid]
-    float v[NST];
+    const int c = tid % CG;
+    const int iters = G * ITERS;
+    const bool owner = rank == 0 && tid < CG;        // st[:, ch0 + tid]
+    float v[NST] = {};       // defined in every thread: no undef to spill
     if (owner) {
 #pragma unroll
-        for (int p = 0; p < NST; ++p) v[p] = x[p * CT + tid];
+        for (int p = 0; p < NST; ++p) v[p] = x[p * C + ch0 + tid];
     }
-    const bool m = roll_mask(x[c]);
-    const size_t base = (size_t)rank * COL_SAMPLES * CT;
-    float r[CT];
+    const bool m = roll_mask(x[ch0 + c]);
+    // element e = tid + 256 i of the slab: sample e / CG, channel c
+    const size_t base = (size_t)rank * COL_SAMPLES * C + ch0 + c;
+    float r[CG];
 #pragma unroll
-    for (int i = 0; i < CT; ++i) {
-        r[i] = w[base + tid + i * COL_THREADS];
+    for (int i = 0; i < CG; ++i) {
+        r[i] = w[base + (size_t)((tid + i * COL_THREADS) / CG) * C];
         if constexpr (V != WIDE_COL) s_w[tid + i * COL_THREADS] = r[i];
     }
-    if constexpr (V != WIDE_COL) cluster.sync();
-    for (int it = 0; it < G * ITERS; ++it) {
-        if constexpr (V == WIDE_COL) {
+    if constexpr (V != WIDE_COL) {
+        if (tid == 0) {
 #pragma unroll
-            for (int i = 0; i < CT; ++i) r[i] = wide_passes(r[i]);
-        } else if constexpr (V == RED_COL) {
+            for (int b = 0; b < 4; ++b) bar_init(&s_bar[b]);
+            asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+        }
+        cluster.sync();                      // every rank's mbarriers ready
+    }
+    if constexpr (V == WIDE_COL) {
+        for (int it = 0; it < iters; ++it) {
+#pragma unroll
+            for (int i = 0; i < CG; ++i) r[i] = wide_passes(r[i]);
+            if (owner) v[7] = st7_step(v[7]);
+        }
+    } else if constexpr (V == RED_COL) {
+        constexpr uint32_t BYTES = (COL_RANKS - 1) * CG * 6 * sizeof(float);
+        for (int it = 0; it < iters; ++it) {
             const int par = it & 1;
+            const uint32_t use = (uint32_t)(it >> 1) & 1u;  // slot use parity
             float acc[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-            for (int i = 0; i < CT; ++i) {
+            for (int i = 0; i < CG; ++i) {
                 const float wv = s_w[tid + i * COL_THREADS];
 #pragma unroll
                 for (int j = 0; j < 6; ++j) acc[j] += red_term(wv, j);
             }
-            // the lanes of one channel are lane ^ 16, ^ 8, ..., ^ CT
+            // the lanes of one channel are lane ^ 16, ^ 8, ..., ^ CG
 #pragma unroll
-            for (int off = 16; off >= CT; off >>= 1) {
+            for (int off = 16; off >= CG; off >>= 1) {
 #pragma unroll
                 for (int j = 0; j < 6; ++j)
                     acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], off);
             }
-            if (lane < CT) {
+            if (lane < CG) {
 #pragma unroll
                 for (int j = 0; j < 6; ++j) s_part[par][warp][j][lane] = acc[j];
             }
             __syncthreads();
-            if (tid < CT) {
+            if (tid < CG) {
+                float blk[6];
 #pragma unroll
                 for (int j = 0; j < 6; ++j) {
-                    float s = s_part[par][0][j][tid];
-                    for (int q = 1; q < COL_WARPS; ++q) s += s_part[par][q][j][tid];
-                    s_blk[par][j][tid] = s;
+                    blk[j] = s_part[par][0][j][tid];
+#pragma unroll
+                    for (int q = 1; q < COL_WARPS; ++q)
+                        blk[j] += s_part[par][q][j][tid];
+                }
+                if (rank != 0) {
+                    // the slot is free once rank 0 has read it two
+                    // iterations ago (at once for the first two)
+                    bar_wait(&s_bar[FREE + par], use ^ 1u);
+                    const uint32_t dst = remote_addr(&s_slot[par][rank][tid][0], 0);
+                    const uint32_t bar = remote_addr(&s_bar[FULL + par], 0);
+                    push4(dst, blk[0], blk[1], blk[2], blk[3], bar);
+                    push2(dst + 16, blk[4], blk[5], bar);
+                } else {
+                    if (tid == 0) bar_expect(&s_bar[FULL + par], BYTES);
+                    bar_wait(&s_bar[FULL + par], use);
+                    float tot = 0.0f;
+#pragma unroll
+                    for (int j = 0; j < 6; ++j) {
+                        float tj = blk[j];
+#pragma unroll
+                        for (int b = 1; b < COL_RANKS; ++b)
+                            tj += s_slot[par][b][tid][j];
+                        tot = j == 0 ? tj : tot + tj;
+                    }
+                    v[0] = tot;
                 }
             }
-            cluster.sync();
-            if (owner) {
-                float tot = 0.0f;
-#pragma unroll
-                for (int j = 0; j < 6; ++j) {
-                    float tj = 0.0f;
-                    for (int b = 0; b < CLUSTER; ++b)
-                        tj += cluster.map_shared_rank(&s_blk[par][j][tid], b)[0];
-                    tot = j == 0 ? tj : tot + tj;
-                }
-                v[0] = tot;
+            // rank 0 has read the slots: lane b of its warp 0 frees rank
+            // b's, all seven at once
+            if (rank == 0 && warp == 0) {
+                __syncwarp();
+                if (lane >= 1 && lane < COL_RANKS && it + 2 < iters)
+                    bar_arrive_remote(remote_addr(&s_bar[FREE + par], lane));
             }
-        } else {
-            for (int s = 0; s < BARREL_STAGES; ++s) {
-                const int sh = barrel_shift(s);
-#pragma unroll
-                for (int i = 0; i < CT; ++i) {
-                    // the rolled element is read whatever the mask, as
-                    // the probe's where(m, roll(w), w) computes it
-                    const int e = tid + i * COL_THREADS;
-                    const int k = ((rank * COL_SAMPLES + e / CT + sh)
-                                   & (SP - 1));
-                    const float rolled = cluster.map_shared_rank(
-                        &s_w[0], k / COL_SAMPLES)[(k % COL_SAMPLES) * CT + c];
-                    r[i] = m ? rolled : s_w[e];
-                }
-                cluster.sync();
-#pragma unroll
-                for (int i = 0; i < CT; ++i) s_w[tid + i * COL_THREADS] = r[i];
-                cluster.sync();
-            }
+            if (owner) v[7] = st7_step(v[7]);
         }
-        if (owner) v[7] = st7_step(v[7]);
+    } else {
+        constexpr uint32_t BYTES = HALO * CG * sizeof(float);
+        const int left = (rank + COL_RANKS - 1) % COL_RANKS;
+        const int right = (rank + 1) % COL_RANKS;
+        float t[ghost_ni<CG>()];
+        if (iters > 0 && tid < HALO * CG)
+            push_halo<CG>(s_bar, s_halo, left, 0, r[0]);
+        for (int it = 0; it < iters; ++it) {
+            const int p = it & 1;
+            if (tid == 0) bar_expect(&s_bar[FULL + p], BYTES);
+            bar_wait(&s_bar[FULL + p], (uint32_t)(it >> 1) & 1u);
+            roll_stage<0, CG>(s_w, s_halo[p], m, t);
+            // stage 0 has read the halo slot: the right rank may refill it
+            if (tid == 0 && it + 2 < iters)
+                bar_arrive_remote(remote_addr(&s_bar[FREE + p], right));
+            roll_stage<1, CG>(s_w, s_halo[p], m, t);
+            roll_stage<2, CG>(s_w, s_halo[p], m, t);
+            roll_stage<3, CG>(s_w, s_halo[p], m, t);
+#pragma unroll
+            for (int i = 0; i < CG; ++i) r[i] = t[i];
+            if (it + 1 < iters && tid < HALO * CG)
+                push_halo<CG>(s_bar, s_halo, left, it + 1, r[0]);
+            if (owner) v[7] = st7_step(v[7]);
+        }
     }
     if (owner) {
 #pragma unroll
-        for (int p = 0; p < NST; ++p) st[p * CT + tid] = v[p];
+        for (int p = 0; p < NST; ++p) st[p * C + ch0 + tid] = v[p];
     }
 #pragma unroll
-    for (int i = 0; i < CT; ++i) wst[base + tid + i * COL_THREADS] = r[i];
-    // no block may leave while another still reads its shared memory
+    for (int i = 0; i < CG; ++i)
+        wst[base + (size_t)((tid + i * COL_THREADS) / CG) * C] = r[i];
+    // no block may leave while another may still write its shared memory
     if constexpr (V != WIDE_COL) cluster.sync();
+}
+
+// Each block also reserves COL_RESERVE bytes of dynamic shared memory
+// that it does not use: two cannot share an SM (228 KB), so the grid's
+// blocks take C / CG * 8 SMs, as row_kernel's C blocks take C.
+constexpr int COL_RESERVE = 116 << 10;
+
+template <int V, int CG>
+int launch_col(const float* x, const float* w, float* st, float* wst, int C,
+               int G, cudaStream_t s) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        col_kernel<V, CG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        COL_RESERVE);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    col_kernel<V, CG><<<C / CG * COL_RANKS, COL_THREADS, COL_RESERVE, s>>>(
+        x, w, st, wst, C, G);
+    return static_cast<int>(cudaGetLastError());
 }
 
 template <int V>
 int launch_col(const float* x, const float* w, float* st, float* wst, int C,
                int G, cudaStream_t s) {
-    switch (C) {
-        case 1: col_kernel<V, 1><<<CLUSTER, COL_THREADS, 0, s>>>(x, w, st, wst, G); break;
-        case 2: col_kernel<V, 2><<<CLUSTER, COL_THREADS, 0, s>>>(x, w, st, wst, G); break;
-        case 4: col_kernel<V, 4><<<CLUSTER, COL_THREADS, 0, s>>>(x, w, st, wst, G); break;
-        case 8: col_kernel<V, 8><<<CLUSTER, COL_THREADS, 0, s>>>(x, w, st, wst, G); break;
-        case 16: col_kernel<V, 16><<<CLUSTER, COL_THREADS, 0, s>>>(x, w, st, wst, G); break;
-        case 32: col_kernel<V, 32><<<CLUSTER, COL_THREADS, 0, s>>>(x, w, st, wst, G); break;
-        default: return invalid();
+    switch (col_group(C)) {
+        case 1: return launch_col<V, 1>(x, w, st, wst, C, G, s);
+        case 2: return launch_col<V, 2>(x, w, st, wst, C, G, s);
+        case 4: return launch_col<V, 4>(x, w, st, wst, C, G, s);
+        default: return launch_col<V, 8>(x, w, st, wst, C, G, s);
     }
-    return static_cast<int>(cudaGetLastError());
 }
 
 template <int NPL>
@@ -422,21 +690,13 @@ extern "C" int forest_constructs_launch(const void* x, void* out, void* st,
                                         void* stream) {
     if (variant < 0 || variant >= NCONSTRUCT || C < 1 || C > 1024 || G < 1)
         return invalid();
-    const size_t smem = 2 * NP * (size_t)C * sizeof(float);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     return dispatch_construct(variant, [&](auto vc) {
         constexpr int V = decltype(vc)::value;
-        if (smem > DEFAULT_SMEM) {
-            const cudaError_t err = cudaFuncSetAttribute(
-                constructs_kernel<V>,
-                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                static_cast<int>(smem));
-            if (err != cudaSuccess) return static_cast<int>(err);
+        if constexpr (V == WHEN_ANY || V == WHEN_ANY4) {
+            if (C <= 32) return launch_constructs<V, true>(x, out, st, sti, C, G, s);
         }
-        constructs_kernel<V><<<1, C, smem, s>>>(
-            static_cast<const float*>(x), static_cast<float*>(out),
-            static_cast<float*>(st), static_cast<int*>(sti), C, G);
-        return static_cast<int>(cudaGetLastError());
+        return launch_constructs<V, false>(x, out, st, sti, C, G, s);
     });
 }
 
@@ -449,6 +709,9 @@ extern "C" int forest_layout_launch(const void* x, const void* w, void* st,
                                     void* wst, int variant, int C, int G,
                                     void* stream) {
     if (variant < 0 || variant >= NLAYOUT || C < 1 || G < 0) return invalid();
+    const bool col = variant == WIDE_COL || variant == RED_COL ||
+                     variant == ROLL_COL;
+    if (col && (C > 32 || 32 % C != 0)) return invalid();
     const float* xp = static_cast<const float*>(x);
     const float* wp = static_cast<const float*>(w);
     float* sp = static_cast<float*>(st);

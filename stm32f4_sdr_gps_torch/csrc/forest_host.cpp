@@ -8,11 +8,13 @@
 // refuses.  P6 and P7 take the kernels' own per-channel code; P8's sums
 // follow the row kernel's order (per thread over samples tid + 256 i, the
 // shuffle tree within each warp, the warps in order, then the six sums in
-// order).  The CPU tests hold them against the plain torch versions
+// order); forest_layout_col_host runs the col kernels' own decomposition
+// and order.  The CPU tests hold them against the plain torch versions
 // (probes/forest_chain.py, forest_constructs.py, forest_layout.py).
 
 #include <string.h>
 
+#include <algorithm>
 #include <vector>
 
 #include "forest_ops.cuh"
@@ -117,6 +119,16 @@ extern "C" int forest_constructs_host(const void* x, void* out, void* st,
     });
 }
 
+// out[i] = sin(x[i]) (offset 0) or cos(x[i]) (offset 1) as P7's sincos
+// computes them on the card (trig_f).
+extern "C" int forest_trig_host(const void* x, void* out, int n, int offset) {
+    if (n < 0 || offset < 0 || offset > 1) return 1;
+    const float* xp = static_cast<const float*>(x);
+    float* op = static_cast<float*>(out);
+    for (int i = 0; i < n; ++i) op[i] = trig_f(xp[i], offset);
+    return 0;
+}
+
 // wst receives the final plane for every variant (tr6 and tr2: w as it
 // came in).
 extern "C" int forest_layout_host(const void* x, const void* w, void* st,
@@ -166,6 +178,106 @@ extern "C" int forest_layout_host(const void* x, const void* w, void* st,
             }
         }
         for (int c = 0; c < C; ++c) S[7 * C + c] = st7_step(S[7 * C + c]);
+    }
+    return 0;
+}
+
+// P8's col variants as col_kernel decomposes them, literally: groups of
+// col_group(C) channels, each a cluster of COL_RANKS slabs of 256 samples;
+// red_col sums as a rank's threads do (element e = tid + 256 i of the slab
+// is sample e / CG, channel tid % CG), then across the lanes of a channel
+// (lane ^ 16, ..., ^ CG), its warps in order and the ranks in rank order;
+// roll_col runs each rank's stages on its slab and the first HALO rows of
+// the next rank's (cyclically), over a ghost zone that shrinks to
+// col_extent(s) rows at stage s.  Same arguments as forest_layout_host.
+extern "C" int forest_layout_col_host(const void* x, const void* w, void* st,
+                                      void* wst, int variant, int C, int G) {
+    if (!is_col(variant) || C < 1 || C > 32 || 32 % C != 0 || G < 0)
+        return 1;
+    const int CG = col_group(C);
+    float* S = static_cast<float*>(st);
+    float* W = static_cast<float*>(wst);
+    memcpy(S, x, sizeof(float) * NST * C);
+    memcpy(W, w, sizeof(float) * SP * C);
+    auto at = [&](int row, int ch) -> float& { return W[(size_t)row * C + ch]; };
+    std::vector<float> acc(COL_THREADS * 6), slabs((size_t)SP * CG),
+        buf(GHOST * CG), nxt(GHOST * CG);
+    float blk[COL_RANKS][COL_GROUP][6];
+    for (int g0 = 0; g0 < C; g0 += CG) {
+        for (int it = 0; it < G * ITERS; ++it) {
+            if (variant == WIDE_COL) {
+                for (int row = 0; row < SP; ++row)
+                    for (int c = 0; c < CG; ++c)
+                        at(row, g0 + c) = wide_passes(at(row, g0 + c));
+            } else if (variant == RED_COL) {
+                for (int rank = 0; rank < COL_RANKS; ++rank) {
+                    for (int tid = 0; tid < COL_THREADS; ++tid) {
+                        float* a = &acc[tid * 6];
+                        for (int j = 0; j < 6; ++j) a[j] = 0.0f;
+                        for (int i = 0; i < CG; ++i) {
+                            const int e = tid + i * COL_THREADS;
+                            const float wv = at(rank * COL_SAMPLES + e / CG,
+                                                g0 + tid % CG);
+                            for (int j = 0; j < 6; ++j) a[j] += red_term(wv, j);
+                        }
+                    }
+                    float part[COL_WARPS][COL_GROUP][6];
+                    for (int warp = 0; warp < COL_WARPS; ++warp) {
+                        float v[32][6], t[32][6];
+                        memcpy(v, &acc[warp * 32 * 6], sizeof v);
+                        for (int off = 16; off >= CG; off >>= 1) {
+                            for (int l = 0; l < 32; ++l)
+                                for (int j = 0; j < 6; ++j)
+                                    t[l][j] = v[l][j] + v[l ^ off][j];
+                            memcpy(v, t, sizeof v);
+                        }
+                        for (int c = 0; c < CG; ++c)
+                            for (int j = 0; j < 6; ++j) part[warp][c][j] = v[c][j];
+                    }
+                    for (int c = 0; c < CG; ++c)
+                        for (int j = 0; j < 6; ++j) {
+                            float s = part[0][c][j];
+                            for (int q = 1; q < COL_WARPS; ++q) s += part[q][c][j];
+                            blk[rank][c][j] = s;
+                        }
+                }
+                for (int c = 0; c < CG; ++c) {
+                    float tot = 0.0f;
+                    for (int j = 0; j < 6; ++j) {
+                        float tj = blk[0][c][j];
+                        for (int b = 1; b < COL_RANKS; ++b) tj += blk[b][c][j];
+                        tot = j == 0 ? tj : tot + tj;
+                    }
+                    S[g0 + c] = tot;
+                }
+            } else {
+                for (int rank = 0; rank < COL_RANKS; ++rank) {
+                    const int next = (rank + 1) % COL_RANKS;
+                    for (int k = 0; k < GHOST; ++k) {
+                        const int row = k < COL_SAMPLES
+                                            ? rank * COL_SAMPLES + k
+                                            : next * COL_SAMPLES + k - COL_SAMPLES;
+                        for (int c = 0; c < CG; ++c) buf[k * CG + c] = at(row, g0 + c);
+                    }
+                    for (int s = 0; s < BARREL_STAGES; ++s) {
+                        const int sh = barrel_shift(s);
+                        for (int k = 0; k < col_extent(s); ++k)
+                            for (int c = 0; c < CG; ++c)
+                                nxt[k * CG + c] = roll_mask(S[g0 + c])
+                                                      ? buf[(k + sh) * CG + c]
+                                                      : buf[k * CG + c];
+                        std::copy(nxt.begin(), nxt.begin() + col_extent(s) * CG,
+                                  buf.begin());
+                    }
+                    std::copy(buf.begin(), buf.begin() + COL_SAMPLES * CG,
+                              slabs.begin() + (size_t)rank * COL_SAMPLES * CG);
+                }
+                for (int row = 0; row < SP; ++row)
+                    for (int c = 0; c < CG; ++c) at(row, g0 + c) = slabs[row * CG + c];
+            }
+            for (int c = 0; c < CG; ++c)
+                S[7 * C + g0 + c] = st7_step(S[7 * C + g0 + c]);
+        }
     }
     return 0;
 }

@@ -16,6 +16,7 @@
 #pragma once
 
 #include <stdint.h>
+#include <string.h>
 
 #include <type_traits>
 
@@ -198,9 +199,99 @@ __host__ __device__ inline float stack_scale(int j) {
     return (float)(1.0 + 0.001 * j);
 }
 
+__host__ __device__ inline uint32_t f32_bits(float v) {
+    uint32_t u;
+    memcpy(&u, &v, sizeof u);
+    return u;
+}
+
+// sin(r) (quad even) or cos(r) (quad odd) for |r| <= ~pi/4, negated
+// when quad & 2: Cephes' single-precision polynomials, explicit fmaf.
+__host__ __device__ inline float quadrant_poly(float r, int quad) {
+    const float z = r * r;
+    float y;
+    if (quad & 1) {
+        const float p = fmaf(fmaf(2.443315711809948e-5f, z,
+                                  -1.388731625493765e-3f), z,
+                             4.166664568298827e-2f);
+        y = fmaf(p, z * z, fmaf(-0.5f, z, 1.0f));
+    } else {
+        const float p = fmaf(fmaf(-1.9515295891e-4f, z, 8.3321608736e-3f), z,
+                             -1.6666654611e-1f);
+        y = fmaf(p, z * r, r);
+    }
+    return (quad & 2) ? -y : y;
+}
+
+// x = q pi/2 + r with |r| <= ~pi/4.  Up to |x| = 105615 a three-part
+// Cody-Waite reduction; past it Payne-Hanek: the 24-bit mantissa times
+// 192 bits of 2/pi in 32-bit words, of which a 64-bit window holds x 2/pi
+// mod 4 with 62 fraction bits.  Every word sits in a register (the window
+// is picked by selects, never by an index), so the kernel keeps no stack
+// frame, which CUDA's own sinf / cosf need for this path.
+__host__ __device__ inline float reduce_half_pi(float x, int& q) {
+    const uint32_t bits = f32_bits(x);
+    const int biased = (int)((bits >> 23) & 0xffu);
+    if (!(fabsf(x) > 105615.0f)) {
+        const float j = rintf(x * 0.636619772f);
+        q = j == j ? (int)j : 0;
+        float r = fmaf(-j, 1.5707962512969971e+00f, x);
+        r = fmaf(-j, 7.5497894158615964e-08f, r);
+        return fmaf(-j, 5.3903029534742384e-15f, r);
+    }
+    if (biased == 0xff) {                            // inf: NaN
+        q = 0;
+        return x - x;
+    }
+    const uint32_t two_over_pi[6] = {0x3c439041u, 0xdb629599u, 0xf534ddc0u,
+                                     0xfc2757d1u, 0x4e441529u, 0xa2f9836eu};
+    const uint32_t m = ((bits & 0x7fffffu) | 0x800000u) << 8;
+    uint32_t w[7];
+    uint64_t carry = 0;
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+        const uint64_t p = (uint64_t)two_over_pi[i] * m + carry;
+        w[i] = (uint32_t)p;
+        carry = p >> 32;
+    }
+    w[6] = (uint32_t)carry;
+    // bit b of w weighs 2^(b + e - 223) in x 2/pi: the window starts at
+    // 2^-62, bit 161 - e, in word 1..4
+    const int lo_bit = 161 - (biased - 127);
+    const int k = lo_bit >> 5, sh = lo_bit & 31;
+    uint32_t w0 = w[1], w1 = w[2], w2 = w[3];
+#pragma unroll
+    for (int j = 2; j <= 4; ++j) {
+        if (k == j) {
+            w0 = w[j];
+            w1 = w[j + 1];
+            w2 = w[j + 2];
+        }
+    }
+    uint64_t win = (((uint64_t)w1 << 32) | w0) >> sh;
+    if (sh) win |= (uint64_t)w2 << (64 - sh);
+    int quad = (int)(win >> 62);
+    int64_t f = (int64_t)(win & ((1ull << 62) - 1));
+    if (f >= (1ll << 61)) {                          // to the nearest quadrant
+        f -= 1ll << 62;
+        quad += 1;
+    }
+    const float r = (float)((double)f * 3.4061215800865545e-19);  // pi/2^63
+    q = (bits >> 31) ? -quad : quad;
+    return (bits >> 31) ? -r : r;
+}
+
+// sin(x) (offset 0) or cos(x) (offset 1), from registers only
+__host__ __device__ inline float trig_f(float x, int offset) {
+    int q;
+    const float r = reduce_half_pi(x, q);
+    return quadrant_poly(r, q + offset);
+}
+
 // The constructs that touch only their own channel's values: imod4,
-// fdiv4, sincos (cosf + sinf, as the probe computes it), costas and lcg.
-// The others synchronise the block or store, and live in the kernel.
+// fdiv4, sincos (cos + sin, as the probe computes it, by trig_f), costas
+// and lcg.  The others synchronise the block or store, and live in the
+// kernel.
 template <int V>
 __host__ __device__ inline void own_construct(float& a, float& b, int& ia,
                                               int ib) {
@@ -215,7 +306,7 @@ __host__ __device__ inline void own_construct(float& a, float& b, int& ia,
             b = a + b;
         }
     } else if constexpr (V == SINCOS) {
-        a = cosf(a) + sinf(b);
+        a = trig_f(a, 1) + trig_f(b, 0);
     } else if constexpr (V == COSTAS) {
         a = track::costas_err(a, b);
     } else if constexpr (V == LCG) {
@@ -271,6 +362,29 @@ __host__ __device__ inline int barrel_shift(int stage) { return 1 << stage; }
 
 // the per-channel roll mask st[0] > 0.5 (forest_probe3.py:113-115)
 __host__ __device__ inline bool roll_mask(float st0) { return st0 > 0.5f; }
+
+// The col kernels' decomposition (forest.cu col_kernel; forest_host.cpp
+// forest_layout_col_host runs it on the host): a cluster of COL_RANKS
+// blocks takes a group of col_group(C) channels, rank r the samples
+// [256 r, 256 r + 256).  roll_col's stages shift by 1 + 2 + 4 + 8 = HALO
+// samples in all, so a rank works on its slab and the first HALO rows of
+// the next rank's (cyclically): GHOST rows, of which stage s computes the
+// first col_extent(s).
+constexpr int COL_RANKS = 8;
+constexpr int COL_THREADS = 256;
+constexpr int COL_WARPS = COL_THREADS / 32;
+constexpr int COL_SAMPLES = SP / COL_RANKS;
+constexpr int COL_GROUP = 8;
+constexpr int HALO = (1 << BARREL_STAGES) - 1;
+constexpr int GHOST = COL_SAMPLES + HALO;
+
+__host__ __device__ constexpr int col_group(int C) {
+    return C < COL_GROUP ? C : COL_GROUP;
+}
+
+__host__ __device__ constexpr int col_extent(int stage) {
+    return GHOST - ((2 << stage) - 1);
+}
 
 __host__ __device__ inline float tr_scale(float v) { return v * 1.000001f; }
 

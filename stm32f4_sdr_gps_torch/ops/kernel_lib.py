@@ -49,7 +49,8 @@ GXX_FLAGS = ["-O3", "-std=c++17", "-ffp-contract=off", "-D__host__=",
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _FLOAT = ctypes.c_float
-#: compiler output and seconds of the last build in this process, by name
+#: compiler output, seconds and library path of the last build in this
+#: process, by name
 build_info: dict = {}
 
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
@@ -97,7 +98,8 @@ def _build(name: str, compiler: list, sources: list, csrc: str = CSRC,
         if os.path.exists(lib + ".log"):
             with open(lib + ".log") as f:
                 log = f.read()
-        build_info[name] = {"seconds": 0.0, "cached": True, "log": log}
+        build_info[name] = {"seconds": 0.0, "cached": True, "log": log,
+                            "path": lib}
         return lib
     os.makedirs(build_dir, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
@@ -120,7 +122,7 @@ def _build(name: str, compiler: list, sources: list, csrc: str = CSRC,
             if os.path.exists(path):
                 os.remove(path)
     build_info[name] = {"seconds": time.perf_counter() - t0, "cached": False,
-                        "log": log}
+                        "log": log, "path": lib}
     return lib
 
 
@@ -232,7 +234,8 @@ def host_lib() -> ctypes.CDLL:
     """The host build of the kernels' arithmetic (``track_scan_host``,
     ``k1_channels_per_block``, ``watchdog_host``, ``code_phase_mod_host``,
     ``epl_host``, ``forest_chain_host``, ``forest_constructs_host``,
-    ``forest_layout_host``, ``roll_rows_host``, ``barrel_host``), built
+    ``forest_layout_host``, ``forest_layout_col_host``,
+    ``forest_trig_host``, ``roll_rows_host``, ``barrel_host``), built
     with g++ at first use."""
     return _load("kernels_host", ["g++"] + GXX_FLAGS,
                  ["kernels_host.cpp", "forest_host.cpp", "roll_host.cpp"],
@@ -245,5 +248,7 @@ def host_lib() -> ctypes.CDLL:
                   "forest_chain_host": _CHAIN_ARGS,
                   "forest_constructs_host": _CONSTRUCTS_ARGS,
                   "forest_layout_host": _LAYOUT_ARGS,
+                  "forest_layout_col_host": _LAYOUT_ARGS,
+                  "forest_trig_host": [_PTR, _PTR, _INT, _INT],
                   "roll_rows_host": _ROLL_ROWS_ARGS,
                   "barrel_host": _BARREL_ARGS})

@@ -9,7 +9,8 @@ and 1, two fused fma pairs, store them), plus one construct per variant
 
 * ``when_any`` / ``when_any4``: 1 or 4 guards ``any(a > b * 1e9 + j)``
   over all channels, each followed by a store that the body's own store
-  overwrites; on the card a block barrier each (``__syncthreads_or``);
+  overwrites; on the card a warp vote each (``__any_sync``) at C <= 32, a
+  block barrier (``__syncthreads_or``) past it;
 * ``concat16``: the 16 pieces ``a * (1 + 0.01 j)`` stored to output row 0;
 * ``stack13``: all 13 planes written as ``a * (1 + 0.001 j)``;
 * ``imod4``: four int32 floor-mods ``ia = (ib - ia) mod (20 + j)``;
@@ -33,9 +34,15 @@ Semantics the port fixes, against the TPU probe:
   compiler cannot drop it as dead.
 
 The kernel (``csrc/forest.cu``, ``constructs_kernel``) runs one thread
-per channel with all C channels in one block and the planes in shared
-memory.  The plain torch version forms the fused steps in float64 and
-rounds them to float32.  At the probe's size the chains overflow (the
+per channel with all C channels in one block (C <= 1024) and the 13 + 13
+planes in registers, as the tracking kernel keeps its channel state:
+loaded once, stored once, and every iteration's construct kept in the
+loop.  ``when_any`` votes over the warp (``__any_sync``) when the block is
+one warp (C <= 32) and over the block (``__syncthreads_or``) past it;
+``sincos`` takes sin and cos from ``trig_f`` (``csrc/forest_ops.cuh``,
+registers only, within 2 ulp), since CUDA's own keep a stack frame.  The
+plain torch version forms the fused steps in float64 and rounds them to
+float32.  At the probe's size the chains overflow (the
 base's b grows about 5x per iteration: inf long before 1024 iterations),
 so kernel and plain version are compared at G = 2 and timed at G = 128.
 
@@ -103,8 +110,9 @@ def tolerance(variant: str) -> tuple:
     """(rtol, atol) of the kernel against the plain version: rtol 1e-5 on
     everything, as every construct rides on the fused chain (the plain
     version rounds a float64 result once, a rare double rounding apart
-    from fmaf); sincos also atol 1e-5 on a = cos(a) + sin(b), for an ulp
-    between the card's cosf / sinf and torch's carried along the chain."""
+    from fmaf); sincos also atol 1e-5 on a = cos(a) + sin(b), for the ulps
+    between the kernel's sin and cos (trig_f, within 2 ulp) and torch's
+    carried along the chain."""
     return (1e-5, 1e-5) if variant == "sincos" else (1e-5, 0.0)
 
 
@@ -241,8 +249,8 @@ def ns_per_iter_finite(variant: str, x: torch.Tensor) -> float:
     """The kernel's time per inner iteration in ns on finite values: the
     device time of a FINITE_G-step launch less that of a 1-step launch
     (each the median of 3 runs of 50 launches queued back to back), over
-    the 8 (FINITE_G - 1) iterations between them.  IEEE divides and cosf
-    / sinf take slower paths on inf, NaN and huge arguments, which the
+    the 8 (FINITE_G - 1) iterations between them.  IEEE divides and sin
+    / cos take slower paths on inf, NaN and huge arguments, which the
     probe's size reaches after about 40 iterations."""
     def launch_ms(g):
         out = _outputs(x.shape[1], g, x.device)

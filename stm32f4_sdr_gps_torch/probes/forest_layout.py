@@ -36,8 +36,17 @@ Semantics the port fixes, against the TPU probe:
 The kernels (``csrc/forest.cu``): ``tr_kernel``, one block that moves the
 planes through shared memory between a thread per channel and a thread
 per (plane, channel); ``row_kernel``, one block per channel with its
-8 KB row in shared memory; ``col_kernel``, the sample-major plane split
-over the 8 blocks of a thread-block cluster (C must divide 32).
+8 KB row in shared memory; ``col_kernel``, the sample-major plane over a
+grid of thread-block clusters (C in 1, 2, 4, 8, 16, 32).  Each cluster of
+8 blocks takes CG = min(C, 8) channels, so a channel has 256 threads as
+in ``row_kernel`` and C = 32 runs on 32 blocks; block r of a cluster
+holds samples [256 r, 256 r + 256) of its channels.  ``red_col``'s ranks
+send their sums to rank 0 and ``roll_col``'s each send the first 15 rows
+of their new slab to the rank before (the barrel's stages shift by 15
+samples in all), both by stores into the other block's shared memory
+that complete on its mbarrier: no cluster barrier inside the loop.
+``layout_col_host`` runs that decomposition on the host (the g++ build),
+in the kernel's summation order.
 
     python -m stm32f4_sdr_gps_torch.probes.forest_layout [variant|all] [C] [G]
 
@@ -211,6 +220,24 @@ def layout_host(x: torch.Tensor, w: torch.Tensor, variant: str,
                                      st.data_ptr(), wst.data_ptr(),
                                      VARIANTS.index(variant), c, g):
         raise ValueError(f"forest_layout_host refused {variant} at C={c}")
+    return st, wst
+
+
+def layout_col_host(x: torch.Tensor, w: torch.Tensor, variant: str,
+                    g: int = G) -> tuple:
+    """P8's col variants through the g++ host build of col_kernel's
+    decomposition (channel groups, rank slabs, roll_col's 15-row halo and
+    ghost-zone stages, red_col's rank-order sum), on CPU tensors: the
+    kernel's output bit for bit."""
+    from ..ops.kernel_lib import host_lib
+
+    c = _checked(x, w, variant)
+    st, wst = torch.empty_like(x), torch.empty_like(w)
+    if host_lib().forest_layout_col_host(x.data_ptr(), w.data_ptr(),
+                                         st.data_ptr(), wst.data_ptr(),
+                                         VARIANTS.index(variant), c, g):
+        raise ValueError(f"forest_layout_col_host refused {variant} at "
+                         f"C={c}")
     return st, wst
 
 

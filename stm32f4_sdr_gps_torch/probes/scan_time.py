@@ -19,7 +19,10 @@ times
   ``use_pallas=True, in_kernel_scan=False``) on :func:`k1_scenario`:
   seconds of host clock for its 1000 epochs, ending in a synchronize;
 * P5, both variants at T = 1600 on the probe's inputs: device time per
-  launch, 10 launches queued behind a device sleep.
+  launch, 10 launches queued behind a device sleep;
+* P7 and P8, every variant at full size (G = 128) on the probes' inputs
+  at 32 and 4 channels: ns per iteration (the probes' ``ns_per_iter``,
+  launches queued behind a device sleep), after a warm-up.
 
 Prints one JSON line per run and the card's ``nvidia-smi`` name and power
 limit; exits 1 without a card.  Run as a script, the file imports the package only from ROOT, so
@@ -128,6 +131,7 @@ def _time_one(root: str) -> dict:
     res.update(_k2_times(x[0], u2))
     res.update(_loop_s(st, x, u2))
     res.update(_p5_times())
+    res.update(_forest_times())
     return res
 
 
@@ -195,6 +199,29 @@ def _p5_times() -> dict:
             fn(*args, 1600)
         res[f"p5_{variant}_ms"] = queued_ms(lambda: fn(*args, 1600), 5, 10,
                                             20_000_000)
+    return res
+
+
+def _forest_times() -> dict:
+    """P7's and P8's ns per iteration per variant at G = 128, 32 and 4
+    channels, on the probes' inputs."""
+    import torch
+
+    from stm32f4_sdr_gps_torch.probes import forest_constructs as p7
+    from stm32f4_sdr_gps_torch.probes import forest_layout as p8
+    from stm32f4_sdr_gps_torch.probes.common import warm_up
+
+    res = {}
+    for c in (32, 4):
+        x = torch.as_tensor(p7.probe_inputs(c), device="cuda")
+        warm_up(lambda: p7.constructs_cuda(x, "base", p7.G))
+        for v in p7.VARIANTS:
+            res[f"p7_{v}_ns_{c}ch"] = p7.ns_per_iter(v, x)
+        for v in p8.VARIANTS:
+            if p8.supports(v, c):
+                x8, w8 = (torch.as_tensor(a, device="cuda")
+                          for a in p8.probe_inputs(v, c))
+                res[f"p8_{v}_ns_{c}ch"] = p8.ns_per_iter(v, x8, w8)
     return res
 
 

@@ -235,6 +235,21 @@ def test_scan_parts_builds_see_the_scan_inputs(dev):
         assert r["ms"] > 0
 
 
+def test_col_parts_builds_check(dev):
+    """probes/col_parts.py at 4 channels: every build runs; those that
+    keep the exchange equal the host build of the decomposition bit for
+    bit, and the 8 blocks of the cluster run on 8 SMs."""
+    from stm32f4_sdr_gps_torch.probes import col_parts
+
+    records = col_parts.run([4])
+    assert {r["build"] for r in records} == set(col_parts.BUILDS)
+    for r in records:
+        assert r["check"] is (True if r["build"] in col_parts.CHECKED
+                              else None), r
+        assert r["sms"] == (8 if r["build"] == "sm_ids" else None), r
+        assert r["ns_per_iter"] > 0
+
+
 def test_receiver_runs_on_kernel(dev):
     """Receiver.run on the card (kernel tracking, device digest) on a
     compressed-bit 4-satellite capture: every channel tracks and decodes
@@ -450,6 +465,42 @@ def test_forest_kernel_matches_plain_version(dev, probe, variant, which):
         g, w = g.cpu().numpy(), w.cpu().numpy()
         assert np.all(np.isfinite(g)) and np.all(np.isfinite(w))
         np.testing.assert_allclose(g, w, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("which", ["probe", "seeded"])
+@pytest.mark.parametrize("c", [32, 4])
+@pytest.mark.parametrize("g", [2, 64])
+@pytest.mark.parametrize("variant", ["wide_col", "red_col", "roll_col"])
+def test_col_kernel_equals_host_decomposition(dev, variant, g, c, which):
+    """The col kernels (a grid of clusters; red_col's sums and roll_col's
+    halo exchanged on mbarriers) against the host build of the same
+    decomposition, bit for bit, over many iterations of the slots'
+    double buffers."""
+    x, w, _, _ = forest_layout.check_args(variant, which, dev, c)
+    got = forest_layout.layout_cuda(x, w, variant, g)
+    torch.cuda.synchronize()
+    want = forest_layout.layout_col_host(x.cpu(), w.cpu(), variant, g)
+    for gv, wv in zip(got, want):
+        assert torch.equal(gv.cpu(), wv)
+
+
+@pytest.mark.parametrize("c", [4, 256])
+@pytest.mark.parametrize("variant", forest_constructs.VARIANTS)
+def test_constructs_kernel_equals_host_build(dev, variant, c):
+    """P7 with the planes in registers, at one partial warp (the warp
+    vote) and at 8 warps (the block barrier), against the host build of
+    its body: bit for bit, sincos within its tolerance."""
+    args = forest_constructs.check_args(variant, "seeded", dev, c)
+    got = forest_constructs.constructs_cuda(*args)
+    torch.cuda.synchronize()
+    want = forest_constructs.constructs_host(args[0].cpu(), *args[1:])
+    rtol, atol = forest_constructs.tolerance(variant)
+    for gv, wv in zip(got, want):
+        if variant == "sincos":
+            np.testing.assert_allclose(gv.cpu().numpy(), wv.numpy(),
+                                       rtol=rtol, atol=atol)
+        else:
+            assert torch.equal(gv.cpu(), wv)
 
 
 ROLL_CASES = ([(roll_wide, c) for c in roll_wide.CASES]

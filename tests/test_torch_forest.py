@@ -33,8 +33,11 @@ Tolerances (plain version vs restatement):
 
 The g++ host build of the CUDA source's bodies (csrc/forest_ops.cuh via
 csrc/forest_host.cpp) is held against the plain version too: exact for
-P6 and P7 but sincos (glibc's cosf and sinf against torch's, the same
-tolerance), rtol 1e-5 on P8's sums.
+P6 and P7 but sincos (the kernel's trig_f against torch's, the same
+tolerance), rtol 1e-5 on P8's sums.  So is the host build of P8's col
+kernels' own decomposition (layout_col_host: channel groups, rank slabs,
+roll_col's halo and ghost zone, red_col's rank-order sum), which the
+card's col kernels must equal bit for bit (tests/test_torch_cuda.py).
 """
 
 import functools
@@ -444,6 +447,93 @@ def test_p8_host_build_refuses_what_the_kernels_refuse():
     x, w = (torch.as_tensor(a) for a in p8.probe_inputs("tr6", 171))
     with pytest.raises(ValueError, match="C=171"):
         p8.layout_host(x, w, "tr6", 1)
+
+
+# ---- the host build of the col kernels' decomposition ----
+
+COL = ["wide_col", "red_col", "roll_col"]
+COL_C = [1, 2, 4, 8, 16, 32]
+
+
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("c", COL_C)
+@pytest.mark.parametrize("variant", COL)
+def test_p8_col_decomposition_matches_plain(variant, c, g):
+    """Channel groups, rank slabs, the halo and ghost zone, the rank-order
+    sum: roll_col and wide_col bit for bit (wide_col also against the
+    host path that runs the plane whole), red_col's sums within rtol
+    1e-5 (another order)."""
+    for which in INPUTS:
+        x, w, _, _ = p8.check_args(variant, which, c=c)
+        got = p8.layout_col_host(x, w, variant, g)
+        want = p8.layout_reference(x, w, variant, g)
+        if variant == "red_col":
+            for gv, wv in zip(got, want):
+                _close(gv.numpy(), wv.numpy(), rtol=1e-5)
+        else:
+            for gv, wv in zip(got, want):
+                assert torch.equal(gv, wv), which
+        if variant == "wide_col":
+            for gv, hv in zip(got, p8.layout_host(x, w, variant, g)):
+                assert torch.equal(gv, hv), which
+
+
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("c", COL_C)
+def test_p8_roll_col_halo_crosses_every_rank_boundary(c, g):
+    """Every sample of every channel distinct, masked channels in every
+    group of 8 (and the last): after G * 8 iterations a masked channel is
+    rolled by 15 G 8 samples, so every rank's last rows come from the next
+    rank's slab (rank 7's from rank 0's), through the halo."""
+    x = np.full((8, 1, c), 0.25, np.float32)
+    masked = [ch for ch in range(c) if ch % 3 == 0 or ch == c - 1]
+    x[0, 0, masked] = 0.9
+    k = np.arange(p8.SP, dtype=np.float32)[:, None]
+    w = (k + p8.SP * np.arange(c, dtype=np.float32)[None, :]).astype(
+        np.float32)
+    xt, wt = torch.as_tensor(x), torch.as_tensor(w)
+    st, wst = p8.layout_col_host(xt, wt, "roll_col", g)
+    want = w.copy()
+    want[:, masked] = np.roll(w[:, masked], -15 * EPOCHS * g, axis=0)
+    np.testing.assert_array_equal(wst.numpy(), want)
+    for gv, wv in zip((st, wst), p8.layout_reference(xt, wt, "roll_col", g)):
+        assert torch.equal(gv, wv)
+
+
+def test_p8_col_host_refuses_what_the_col_kernels_refuse():
+    x, w = (torch.as_tensor(a) for a in p8.probe_inputs("red_col", 3))
+    with pytest.raises(ValueError, match="C=3"):
+        p8.layout_col_host(x, w, "red_col", 1)
+    x, w = (torch.as_tensor(a) for a in p8.probe_inputs("red_row", 4))
+    with pytest.raises(ValueError, match="refused red_row"):
+        p8.layout_col_host(x, w, "red_row", 1)
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["sin", "cos"])
+def test_p7_trig_within_two_ulp(offset):
+    """P7's sincos takes sin and cos from trig_f (registers only): within
+    2 ulp of float64's, from 2^-30 to 2^127 and both signs, through the
+    Cody-Waite (|x| <= 105615) and Payne-Hanek reductions; NaN at inf."""
+    from stm32f4_sdr_gps_torch.ops.kernel_lib import host_lib
+
+    rng = np.random.default_rng(5)
+    bits = (rng.integers(97, 255, 200_000, dtype=np.uint32) << 23
+            | rng.integers(0, 1 << 23, 200_000, dtype=np.uint32)
+            | rng.integers(0, 2, 200_000, dtype=np.uint32) << 31)
+    x = np.concatenate([bits.view(np.float32),
+                        np.float32([105615.0, -105615.0, 105616.0, 0.0,
+                                    np.pi / 4, 3.4028235e38])])
+    out = np.empty_like(x)
+    assert host_lib().forest_trig_host(x.ctypes.data, out.ctypes.data,
+                                       x.size, offset) == 0
+    ref = (np.cos if offset else np.sin)(x.astype(np.float64))
+    r32 = ref.astype(np.float32)
+    ulp = np.spacing(np.abs(r32)).astype(np.float64)
+    assert np.all(np.abs(out - ref) <= 2.0 * ulp + 1e-45)
+    inf = np.float32([np.inf, -np.inf])
+    out = np.empty_like(inf)
+    host_lib().forest_trig_host(inf.ctypes.data, out.ctypes.data, 2, offset)
+    assert np.all(np.isnan(out))
 
 
 # ---- wrappers and entry points without a card ----

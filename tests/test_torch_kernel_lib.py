@@ -105,4 +105,4 @@ def test_cached_library_keeps_its_build_log(tmp_path):
     assert kernel_lib._build("probe", flags, ["probe.cpp"], csrc=str(src),
                              build_dir=str(tmp_path / "build")) == first
     assert kernel_lib.build_info["probe"] == {"seconds": 0.0, "cached": True,
-                                              "log": log}
+                                              "log": log, "path": first}
