@@ -12,8 +12,10 @@ before the result line):
    probe (P5), the epoch-cost probes (P6-P8) and the roll probes (P1-P4);
    fails unless ptxas reports all 8 instantiations of K1's
    track_scan_kernel, and every kernel of the P5, K2 and P6-P8
-   libraries, with 0 bytes of stack frame and no spills (their
-   registers, stack and spills go into the kernels line);
+   libraries, with 0 bytes of stack frame and no spills, and the roll
+   library's two kernels also with 0 bytes of shared memory and no
+   barriers (their registers, stack, spills and shared memory go into
+   the kernels line);
 3. K1 vs its plain version on the card: the tracking scan on 32 channels
    (PRNs 1-32 at 48 dBHz, seeded Doppler and code phase, 3 codes per
    bit) over 1000 epochs, and on the main path's 4-channel shape, held to
@@ -85,12 +87,21 @@ before the result line):
    col_kernel instantiation the MEMBAR.*.GPU, CCTL.IVALL and cluster
    barrier (CGABAR) instructions, none of which may lie inside a loop or
    outnumber what the kernel's entry and exit cluster barriers compile to;
+   then P6 priced against its latency: from the SASS of chain_kernel's
+   one-chain instantiations the dependent instructions and the
+   instructions a pair of each op, the SM clock read by ``nvidia-smi``
+   while c1_fma runs at the tool's size, and each variant's latency bound
+   and share at C = 32, K = 64, G = 128 (``forest_chain.latency_bound_ns``);
 10. P1-P4, every case (P1 at 4352 and 2176 lanes, both signs; P2; P3;
    P4 both signs) at 8, 32 and 128 rows on the tools' inputs and on
    seeded ones, held to its plain version bit for bit; the device time
    per launch (queued) beside the plain version's and that of the one
-   torch.gather that computes the same (the yardstick); then the two
-   entry points, roll_wide and mosaic_bisect, each with every stage.
+   torch.gather that computes the same (the yardstick); P1 and P2 at an
+   odd width (2175 lanes, the kernel's scalar path) at 8, 32 and 128 rows,
+   bit for bit; ``cuobjdump -sass`` of the roll library: no block barrier
+   (BAR) and no shared-memory access (LDS, STS) in either kernel, and
+   16-byte stores (STG.E.128), three a thread in barrel_kernel; then the
+   two entry points, roll_wide and mosaic_bisect, each with every stage.
    The kernels line has one record per kernel wrapper (P1's four cases
    share dyn_roll_cuda, P4's two roll_cuda), each case's numbers inside.
 
@@ -208,6 +219,21 @@ def build():
           "bytes of stack frame and no spills; registers "
           f"{ {n: ptxas[n]['registers'] for n in FOREST_KERNELS} } (most "
           "of any instantiation)")
+    # the roll kernels are gathers: no shared memory, no barrier either
+    log = kernel_lib.build_info["roll_cuda"]["log"]
+    for kernel in ("roll_rows_kernel", "barrel_kernel"):
+        rec = kernel_lib.ptxas_report(log, kernel)
+        bad = [k for k in rec if k["stack"] or k["spill_stores"]
+               or k["spill_loads"] or k["smem"] or k["barriers"]]
+        if len(rec) != 1 or bad:
+            fail(f"roll_cuda: ptxas reports {len(rec)} entries named "
+                 f"{kernel}, with a stack frame, spills, shared memory or "
+                 f"barriers: {bad}")
+        ptxas[kernel] = _ptxas_record(rec)
+    print("[build] roll_cuda: roll_rows_kernel and barrel_kernel with 0 "
+          "bytes of stack frame, no spills, 0 bytes of shared memory and no "
+          "barriers; registers "
+          f"{ {k: ptxas[k]['registers'] for k in ('roll_rows_kernel', 'barrel_kernel')} }")
     return ptxas
 
 
@@ -218,11 +244,13 @@ FOREST_KERNELS = {"forest_chain": ("chain_kernel",),
 
 
 def _ptxas_record(report):
-    """The largest registers, stack and spill bytes over ptxas entries."""
+    """The largest registers, stack, spill and static shared memory bytes
+    over ptxas entries."""
     return {"registers": max(k["registers"] for k in report),
             "stack_bytes": max(k["stack"] for k in report),
             "spill_bytes": max(k["spill_stores"] + k["spill_loads"]
-                               for k in report)}
+                               for k in report),
+            "smem_bytes": max(k["smem"] for k in report)}
 
 
 # The H100 SXM data sheet's peaks at 700 W (dense, without sparsity)
@@ -955,6 +983,7 @@ def forest():
         res[name].update(launches=launches, ns_per_iter=ns128,
                          ns_per_iter_g64=ns64, ns_per_iter_4ch=ns4)
     res["forest_layout"]["sass_col"] = col_sass()
+    res["forest_chain"].update(chain_latency(full["forest_chain", 32, 128]))
     print(f"[forest] phase 9 in {time.perf_counter() - t0:.1f} s")
     return res
 
@@ -982,87 +1011,37 @@ def _sass_kind(ins):
     return None
 
 
-def _successors(ins):
-    """For one SASS function given as (address, text) pairs, each
-    instruction's successors: the next one (unless it is an unconditional
-    BRA, EXIT or RET) and a branch's target."""
-    import re
-
-    index = {a: i for i, (a, _) in enumerate(ins)}
-    succ = []
-    for i, (_, text) in enumerate(ins):
-        words = text.split()
-        pred = bool(words) and words[0].startswith("@")
-        op = (words[1:] if pred else words)[:1] or [""]
-        nxt = []
-        tgt = re.search(r"0x([0-9a-f]+)\s*$", text)
-        if op[0].startswith("BRA") and tgt and int(tgt[1], 16) in index:
-            nxt.append(index[int(tgt[1], 16)])
-        if not ((op[0] == "BRA" and not pred and "," not in text)
-                or (op[0] in ("EXIT", "RET", "RET.REL") and not pred)):
-            nxt.append(i + 1)
-        succ.append([j for j in nxt if j < len(ins)])
-    return succ
-
-
-def _on_cycle(succ, i):
-    """Whether instruction i can reach itself: it lies in a loop."""
-    seen, todo = set(), list(succ[i])
-    while todo:
-        j = todo.pop()
-        if j == i:
-            return True
-        if j not in seen:
-            seen.add(j)
-            todo.extend(succ[j])
-    return False
-
-
 def col_sass():
     """``cuobjdump -sass`` of the forest library: for each col_kernel
     instantiation, its MEMBAR.*.GPU, CCTL.IVALL and cluster-barrier
     (CGABAR) instructions, in all and inside a loop (able to reach
-    themselves in the kernel's control flow, ``_on_cycle``).  Fails if any lies in a loop or there
-    are more than the design's entry and exit barriers compile to."""
-    import re
-    import shutil
-
+    themselves in the kernel's control flow, ``sass.on_cycle``).  Fails if
+    any lies in a loop or there are more than the design's entry and exit
+    barriers compile to."""
     from stm32f4_sdr_gps_torch.ops import kernel_lib
+    from stm32f4_sdr_gps_torch.probes import sass
 
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass",
-                           kernel_lib.build_info["forest_cuda"]["path"]],
-                          capture_output=True, text=True, timeout=300,
-                          check=True).stdout
-    funcs, cur = {}, None
-    for line in sass.splitlines():
-        head = re.search(r"Function : (\S+)", line)
-        if head:
-            kern = re.search(r"col_kernelILi(\d+)ELi(\d+)E", head.group(1))
-            cur = (int(kern[1]), int(kern[2])) if kern else None
-            if cur:
-                funcs[cur] = []
-            continue
-        op = re.search(r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;", line)
-        if cur is not None and op:
-            funcs[cur].append((int(op.group(1), 16), op.group(2)))
+    funcs = sass.functions(
+        sass.dump(kernel_lib.build_info["forest_cuda"]["path"]),
+        r"col_kernelILi(\d+)ELi(\d+)E")
+    funcs = {tuple(map(int, k)): v for k, v in funcs.items()}
     if len(funcs) != 12:
         fail(f"SASS: {len(funcs)} col_kernel instantiations, want 12")
     res = {}
     names = {3: "wide_col", 5: "red_col", 7: "roll_col"}
     for (v, cg), ins in sorted(funcs.items()):
-        succ = _successors(ins)
+        succ = sass.successors(ins)
         count = dict.fromkeys(CLUSTER_BARRIER_SASS, 0)
         in_loop = dict.fromkeys(CLUSTER_BARRIER_SASS, 0)
         for i, (_, text) in enumerate(ins):
             kind = _sass_kind(text)
             if kind:
                 count[kind] += 1
-                in_loop[kind] += _on_cycle(succ, i)
+                in_loop[kind] += sass.on_cycle(succ, i)
         most = {k: n * COL_CLUSTER_BARRIERS[v]
                 for k, n in CLUSTER_BARRIER_SASS.items()}
         label = f"{names[v]} CG={cg}"
-        loop = any(_on_cycle(succ, i) for i in range(len(ins)))
+        loop = any(sass.on_cycle(succ, i) for i in range(len(ins)))
         print(f"[forest] SASS {label}: {len(ins)} instructions; {count} "
               f"(design at most {most}), inside a loop {in_loop}")
         if not loop:
@@ -1073,6 +1052,62 @@ def col_sass():
         res[label] = {"counts": count, "in_loop": in_loop,
                       "design_most": most}
     return res
+
+
+def chain_latency(times):
+    """P6 priced against its latency: from the SASS of chain_kernel's
+    one-chain instantiation of each op, the dependent instructions a pair
+    (the longest chain's growth per trip of the loop over pairs, over the
+    pairs a trip) and the instructions a pair (the trip's, less the loop's
+    own); the SM clock read by nvidia-smi while c1_fma runs at the tool's
+    size; then each variant's latency bound per iteration
+    (``forest_chain.latency_bound_ns``) and its share of the measured
+    ``times`` (the entry point's at C = 32, K = 64, G = 128)."""
+    import torch
+
+    from stm32f4_sdr_gps_torch.ops import kernel_lib
+    from stm32f4_sdr_gps_torch.probes import forest_chain as p6
+    from stm32f4_sdr_gps_torch.probes import sass
+    from stm32f4_sdr_gps_torch.probes.scan_time import sm_clocks_under
+
+    funcs = sass.functions(
+        sass.dump(kernel_lib.build_info["forest_cuda"]["path"]),
+        r"chain_kernelILi(\d)ELi1E")
+    per_pair = {}
+    for op, code in (("fma", "0"), ("sel", "1"), ("int", "2")):
+        ins = funcs.get((code,))
+        if not ins:
+            fail(f"SASS: no chain_kernel<{op}, 1>")
+        marker, per = p6.PAIR_MARKER[op]
+        best = None
+        for first, last in sass.inner_loops(ins):
+            body = [t for _, t in ins[first:last]]
+            n = sum(sass.opcode(t).startswith(marker) for t in body)
+            if n and (best is None or n > best[0]):
+                best = (n, body)
+        if best is None:
+            fail(f"SASS: no loop of chain_kernel<{op}, 1> holds a {marker}")
+        pairs = best[0] / per
+        body = best[1]
+        per_pair[op] = {
+            "pairs_per_trip": pairs,
+            "dependent": sass.depth_per_trip(body) / pairs,
+            "instructions": (len(body) - sass.loop_control(body)) / pairs}
+    x = torch.as_tensor(p6.probe_inputs("c1_fma", p6.C), device="cuda")
+    clocks = sm_clocks_under(lambda: p6.chain_cuda(x, "c1_fma", p6.K, p6.G))
+    bound, share = {}, {}
+    for v, t in times.items():
+        pp = per_pair[v.split("_")[1]]
+        bound[v] = p6.latency_bound_ns(v, pp["dependent"], pp["instructions"],
+                                       clocks["sm_mhz"])
+        share[v] = bound[v] / t["ns_per_iter"]
+    print(f"[forest] P6 SASS per pair (one chain): {per_pair}; SM clock "
+          f"{clocks} MHz while c1_fma runs")
+    for v in times:
+        print(f"[forest] P6 {v}: {times[v]['ns_per_iter']:.1f} ns/iter, "
+              f"latency bound {bound[v]:.1f} ns ({share[v]:.0%})")
+    return {"sm_clocks_mhz": clocks, "sass_per_pair": per_pair,
+            "latency_bound_ns_per_iter": bound, "latency_share": share}
 
 
 def _forest_ops(name, variant, args):
@@ -1114,6 +1149,41 @@ def _roll_nbytes(case, args, outs):
     read = {"statwin": x.shape[1], "barrel": x.shape[0] * WIN}.get(
         case, x.numel()) * x.element_size()
     return read + _nbytes(*args[1:], *outs)
+
+
+# the 16-byte stores (STG.E.128) each thread of a roll kernel makes: E, P
+# and L for the barrel, one row's four lanes for roll_rows
+ROLL_STORES_128 = {"roll_rows_kernel": 1, "barrel_kernel": 3}
+
+
+def roll_sass():
+    """``cuobjdump -sass`` of the roll library: each kernel's block
+    barriers (BAR), shared-memory loads and stores (LDS, STS) and 16-byte
+    global stores.  Fails on any barrier or shared-memory access, or
+    fewer 16-byte stores than ROLL_STORES_128."""
+    from stm32f4_sdr_gps_torch.ops import kernel_lib
+    from stm32f4_sdr_gps_torch.probes import sass
+
+    funcs = sass.functions(
+        sass.dump(kernel_lib.build_info["roll_cuda"]["path"]),
+        r"(roll_rows_kernel|barrel_kernel)")
+    res = {}
+    for kernel, most in ROLL_STORES_128.items():
+        ins = funcs.get((kernel,))
+        if not ins:
+            fail(f"SASS: no {kernel} in the roll library")
+        ops = [sass.opcode(t) for _, t in ins]
+        rec = {"instructions": len(ops),
+               "bar": sum(o.startswith("BAR") for o in ops),
+               "shared": sum(o.startswith(("LDS", "STS")) for o in ops),
+               "stg128": sum(o.startswith("STG") and ".128" in o
+                             for o in ops)}
+        print(f"[roll] SASS {kernel}: {rec}")
+        if rec["bar"] or rec["shared"] or rec["stg128"] < most:
+            fail(f"SASS {kernel}: {rec}: want no BAR, LDS or STS and at "
+                 f"least {most} STG.E.128")
+        res[kernel] = rec
+    return res
 
 
 def roll_probes():
@@ -1173,6 +1243,22 @@ def roll_probes():
                       f"sets; kernel {k_ms * 1e3:.2f} us per launch (queued), "
                       f"gather {l_ms * 1e3:.2f} us, plain version "
                       f"{p_ms:.3f} ms; bound {b_ms * 1e6:.1f} ns ({b_by})")
+    # the scalar path: a width that is no multiple of 4, rows not 16-byte
+    # aligned past the first
+    lanes = roll_wide.ODD_WIDTH
+    for case in ("dynwin_neg", "dynwin_pos", "statwin"):
+        for rows in (8, 32, 128):
+            args = roll_wide.check_args(case, "seeded", dev, rows, lanes)
+            got = roll_wide.KERNELS[case](*args)
+            want = roll_wide.PLAIN[case](*args)
+            if not torch.equal(got, want):
+                fail(f"{case} at {rows} rows x {lanes} lanes: the kernel "
+                     "differs from its plain version")
+            errs[case] = max(errs[case],
+                             float((got.double() - want.double()).abs().max()))
+    print(f"[roll] dynwin_neg, dynwin_pos, statwin at {lanes} lanes, 8 / 32 "
+          "/ 128 rows (seeded): bit for bit")
+    sass_rec = roll_sass()
     _reset_counts()
     for mod, _, pn in _roll_probes():
         name = mod.__name__.rsplit(".", 1)[1]
@@ -1185,7 +1271,7 @@ def roll_probes():
         fail(f"the roll entry points left a kernel unlaunched: {launches}")
     print(f"[roll] phase 10 in {time.perf_counter() - t0:.1f} s; max |kernel"
           f" - plain| {errs}; launches in the entry points {launches}")
-    return res, errs, launches
+    return res, errs, launches, sass_rec
 
 
 def main():
@@ -1215,14 +1301,15 @@ def main():
     k2_launches = half_chip_path(sc)
     p5 = corr_bank()
     forest_res = forest()
-    roll_res, roll_errs, roll_launches = roll_probes()
+    roll_res, roll_errs, roll_launches, roll_sass_rec = roll_probes()
     src = "stm32f4_sdr_gps_torch/csrc/"
     k2_b4, k2_b32 = k2_bound(4), k2_bound(32)
 
-    def roll_entry(name, wrapper, cases, replaces):
+    def roll_entry(name, wrapper, cases, replaces, kernel):
         """One kernel wrapper's record: its launches in the entry points,
         the max error over its cases, the first case's numbers at 8 rows
-        on top and every case's at 8, 32 and 128 rows under ``cases``."""
+        on top and every case's at 8, 32 and 128 rows under ``cases``, its
+        kernel's ptxas record and SASS counts."""
         return {
             "name": name, "route": "cuda", "source": src + "roll.cu",
             "replaces": replaces, "launches": roll_launches[wrapper],
@@ -1230,6 +1317,7 @@ def main():
             **roll_res[cases[0], 8],
             "cases": {f"{c}_{rows}rows": roll_res[c, rows]
                       for c in cases for rows in (8, 32, 128)},
+            **ptxas[kernel], "sass": roll_sass_rec[kernel],
         }
 
     kernels = {"kernels": [{
@@ -1301,13 +1389,13 @@ def main():
     } for name, r in forest_res.items()] + [
         roll_entry("roll_dyn", "dyn_roll_cuda",
                    ["dynu2_neg", "dynu2_pos", "dynwin_neg", "dynwin_pos"],
-                   "tools/tpu_roll_wide_probe.py:78"),
+                   "tools/tpu_roll_wide_probe.py:78", "roll_rows_kernel"),
         roll_entry("roll_static", "statwin_cuda", ["statwin"],
-                   "tools/tpu_roll_wide_probe.py:115"),
+                   "tools/tpu_roll_wide_probe.py:115", "roll_rows_kernel"),
         roll_entry("barrel", "barrel_cuda", ["barrel"],
-                   "tools/tpu_roll_wide_probe.py:157"),
+                   "tools/tpu_roll_wide_probe.py:157", "barrel_kernel"),
         roll_entry("roll_256", "roll_cuda", ["roll_neg", "roll_pos"],
-                   "tools/tpu_mosaic_bisect.py:76"),
+                   "tools/tpu_mosaic_bisect.py:76", "roll_rows_kernel"),
     ]}
     import torch
 

@@ -29,6 +29,7 @@ from ..ops.correlate import (
     noncoherent_power,
 )
 from ..ops.wipeoff import doppler_rotations
+from ..utils.device import card_or_cpu
 
 
 @dataclass
@@ -195,15 +196,18 @@ def acquire(
     cfg: AcqConfig = AcqConfig(),
     num_epochs: int | None = None,
     doppler_hints_hz: dict | None = None,
-    device="cpu",
+    device="cuda",
 ) -> list:
-    """Cold-start acquisition of ``prns`` from a capture.
+    """Cold-start acquisition of ``prns`` from a capture, on ``device``:
+    the card unless the caller asks for the CPU (``device="cpu"``); raises
+    without a card.
 
     Uses ``cfg.noncoherent_epochs`` 1 ms epochs (the firmware integrates
     10 epochs per Doppler bin, acquisition.c:18).  ``doppler_hints_hz``
     maps PRN -> expected Doppler; a hinted channel's search is confined to
     hint +/- one bin (main.c:59-73, acquisition.c:72-79).
     """
+    device = card_or_cpu(device, "acquire")
     _check_supported(cfg)
     s = plan.samples_per_epoch
     e = num_epochs or cfg.noncoherent_epochs

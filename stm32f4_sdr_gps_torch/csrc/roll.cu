@@ -24,16 +24,29 @@
 // before it rotates.  Here a roll is an indexed read and the kernel folds
 // every amount itself (roll_ops.cuh), whatever its sign or size.
 //
-// Bound.  A roll computes nothing and moves 16-350 KB at the probes'
-// sizes: 5-105 ns at 3.35 TB/s, far below the few microseconds of a
-// launch, so a launch bounds each of these kernels.  roll_rows_kernel
-// gives one thread to each output lane (a block of 256 lanes of one row),
-// so neighbouring threads read neighbouring lanes of the source row.
-// barrel_kernel gives one block of 256 threads to each row: the rebuilt
-// window (8.5 KB) lives in shared memory, each barrel stage reads it
-// shifted into registers and writes it back between two block barriers,
-// as P8's roll_row does (csrc/forest.cu), and a stage whose bit of es is
-// clear is skipped by the whole block.
+// Bound.  A roll computes nothing: the bytes it moves (each input lane
+// read once, each output lane written once) over 3.35 TB/s, 5 ns to
+// 1.33 us from 8 rows of 256 lanes to 128 of 4352, under the ~1.7 us of a
+// queued empty launch (NVIDIA H100 80GB HBM3, 700 W) until 128 rows.  So
+// each kernel does the least an output lane needs and fills the card at
+// 128 rows:
+// * a 2-D grid (lane chunks x rows) of ROLL_THREADS-thread blocks; each
+//   thread writes VEC = 4 consecutive lanes of a row (roll_lanes,
+//   barrel_lanes in roll_ops.cuh) with one 16-byte store an output.  On
+//   that card 128 threads a block and one chunk a thread measured best
+//   (probes/roll_parts.py): at 128 rows each further block of the grid
+//   costs about half a nanosecond (32 and 64 threads a block lose up to
+//   1.8 and 0.5 us), and two or four chunks a thread put fewer loads in
+//   flight at 8 and 32 rows;
+// * a row's amounts are read and folded once a thread, the same values in
+//   every thread of the block, so a lane's source is an add and a
+//   conditional subtract, not a %;
+// * no shared memory and no block barrier.  The barrel's stages compose
+//   into one left roll by s = es & 15 and P, L into one more by 1 and 2,
+//   so E, P and L are one gather from the u2 row at the composed index
+//   (barrel_src), each thread reading the VEC + 2 u2 lanes it needs once
+//   for all three outputs.  On the TPU, Mosaic's rotate forced the
+//   barrel stage by stage; the card does not need it.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 // -fmad=false -shared -Xcompiler -fPIC (ops/kernel_lib.py).
@@ -46,60 +59,42 @@ namespace {
 
 using namespace roll;
 
-constexpr int ROLL_THREADS = 256;
-constexpr int BARREL_THREADS = 256;
-constexpr int BARREL_PER = (WIN + BARREL_THREADS - 1) / BARREL_THREADS;
+constexpr int ROLL_THREADS = 128;
+constexpr int CHUNKS = 1;                      // 4-lane chunks a thread
+constexpr int STRIDE = ROLL_THREADS * VEC;     // from chunk to chunk
+constexpr int LANES = STRIDE * CHUNKS;         // output lanes a block
 
 __global__ void __launch_bounds__(ROLL_THREADS)
 roll_rows_kernel(const float* __restrict__ x, const int* __restrict__ amt,
                  float* __restrict__ out, int W, int src_row) {
     const int r = blockIdx.y;
-    const int j = blockIdx.x * ROLL_THREADS + threadIdx.x;
-    if (j >= W) return;
-    const int src = src_row < 0 ? r : src_row;
-    out[(size_t)r * W + j] = x[(size_t)src * W + roll_src(j, amt[r], W)];
+    const int j0 = blockIdx.x * LANES + threadIdx.x * VEC;
+    if (j0 >= W) return;
+    const int a = fold(amt[r], W);
+    const float* src = x + (size_t)(src_row < 0 ? r : src_row) * W;
+    float* dst = out + (size_t)r * W;
+#pragma unroll
+    for (int c = 0; c < CHUNKS; ++c) {
+        const int j = j0 + c * STRIDE;
+        if (j < W) roll_lanes(src, dst, j, a, W);
+    }
 }
 
-__global__ void __launch_bounds__(BARREL_THREADS)
+__global__ void __launch_bounds__(ROLL_THREADS)
 barrel_kernel(const float* __restrict__ u2, const int* __restrict__ mc,
               const int* __restrict__ es, float* __restrict__ e,
               float* __restrict__ p, float* __restrict__ l) {
-    __shared__ float s_w[WIN];
-    const int r = blockIdx.x;
-    const int tid = threadIdx.x;
-    // rebuild: the window of u2's row at the folded rebuild amount
+    const int r = blockIdx.y;
+    const int j0 = blockIdx.x * LANES + threadIdx.x * VEC;
+    if (j0 >= WIN) return;
+    const int a = rebuild_amount(mc[r]);
+    const int s = barrel_shift(es[r]);
     const float* row = u2 + (size_t)r * U2P;
-    const int amt = rebuild_amount(mc[r]);
-    for (int j = tid; j < WIN; j += BARREL_THREADS)
-        s_w[j] = row[roll_src(j, amt, U2P)];
-    __syncthreads();
-    // the masked barrel: stage s left-rolls the window by 1 << s where bit
-    // s of the row's es is set (one value per row, so per block)
-    const int bits = es[r];
-    float v[BARREL_PER];
-    for (int s = 0; s < NSTAGE; ++s) {
-        const int sh = barrel_shift(s);
-        if ((bits & sh) == 0) continue;
+    const size_t o = (size_t)r * WIN;
 #pragma unroll
-        for (int i = 0; i < BARREL_PER; ++i) {
-            const int j = tid + i * BARREL_THREADS;
-            if (j < WIN) v[i] = s_w[roll_src(j, WIN - sh, WIN)];
-        }
-        __syncthreads();
-#pragma unroll
-        for (int i = 0; i < BARREL_PER; ++i) {
-            const int j = tid + i * BARREL_THREADS;
-            if (j < WIN) s_w[j] = v[i];
-        }
-        __syncthreads();
-    }
-    // E, then P and L as left rolls by 1 and 2: every lane, wrap lanes too
-    const size_t base = (size_t)r * WIN;
-    for (int j = tid; j < WIN; j += BARREL_THREADS) {
-        const int j1 = roll_src(j, WIN - 1, WIN);
-        e[base + j] = s_w[j];
-        p[base + j] = s_w[j1];
-        l[base + j] = s_w[roll_src(j1, WIN - 1, WIN)];
+    for (int c = 0; c < CHUNKS; ++c) {
+        const int j = j0 + c * STRIDE;
+        if (j < WIN) barrel_lanes(row, e + o, p + o, l + o, j, a, s);
     }
 }
 
@@ -108,13 +103,14 @@ int invalid() { return static_cast<int>(cudaErrorInvalidValue); }
 }  // namespace
 
 // x: (R, W) f32 (P2: at least src_row + 1 rows); amt: (R,) i32, any sign
-// and size; out: (R, W) f32.  src_row < 0 rolls row r into row r, else
-// row src_row into every row.  Launches on `stream` and returns
-// cudaGetLastError().
+// and size; out: (R, W) f32, 16-byte aligned where W % 4 == 0.
+// src_row < 0 rolls row r into row r, else row src_row into every row.
+// Launches on `stream` and returns cudaGetLastError().
 extern "C" int roll_rows_launch(const void* x, const void* amt, void* out,
                                 int R, int W, int src_row, void* stream) {
     if (R < 1 || R > 65535 || W < 1 || src_row < -1) return invalid();
-    const dim3 grid((W + ROLL_THREADS - 1) / ROLL_THREADS, R);
+    if (W % VEC == 0 && !aligned16(out)) return invalid();
+    const dim3 grid((W + LANES - 1) / LANES, R);
     roll_rows_kernel<<<grid, ROLL_THREADS, 0,
                        static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(x), static_cast<const int*>(amt),
@@ -122,12 +118,15 @@ extern "C" int roll_rows_launch(const void* x, const void* amt, void* out,
     return static_cast<int>(cudaGetLastError());
 }
 
-// u2: (R, 4352) f32; mc, es: (R,) i32; e, p, l: (R, 2176) f32.  Launches
-// on `stream` and returns cudaGetLastError().
+// u2: (R, 4352) f32; mc, es: (R,) i32; e, p, l: (R, 2176) f32, 16-byte
+// aligned.  Launches on `stream` and returns cudaGetLastError().
 extern "C" int barrel_launch(const void* u2, const void* mc, const void* es,
                              void* e, void* p, void* l, int R, void* stream) {
-    if (R < 1) return invalid();
-    barrel_kernel<<<R, BARREL_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+    if (R < 1 || R > 65535) return invalid();
+    if (!(aligned16(e) && aligned16(p) && aligned16(l))) return invalid();
+    const dim3 grid((WIN + LANES - 1) / LANES, R);
+    barrel_kernel<<<grid, ROLL_THREADS, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(u2), static_cast<const int*>(mc),
         static_cast<const int*>(es), static_cast<float*>(e),
         static_cast<float*>(p), static_cast<float*>(l));

@@ -19,14 +19,13 @@ from .ops.track_scan import state_from_track_state
 from .runtime.receiver import _track_and_digest_carried
 from .signal.ca_code import ca_table_bipolar
 from .track.state import init_state
+from .utils.device import card_or_cpu
 
 
 def entry(device="cuda", num_channels: int = 32, num_epochs: int = 96):
     """(fn, example_args): ``fn(ps, epochs, u2) -> (ps2, track_state,
     digest)`` with the arguments made from seed 0 on ``device``."""
-    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"entry(device={device!r}): CUDA is not "
-                           "available; pass device='cpu' to run on the CPU")
+    device = card_or_cpu(device, "entry")
     plan = BASEBAND_PLAN
     cfg = TrackConfig(in_kernel_scan=True)
     s = plan.samples_per_epoch

@@ -18,6 +18,7 @@ import torch
 
 from ..config import CODE_LENGTH, CODE_RATE_HZ, SignalPlan
 from ..signal.ca_code import ca_code_bits
+from ..utils.device import card_or_cpu
 
 
 def sampled_code_table(prns, plan: SignalPlan, dtype=np.float32) -> np.ndarray:
@@ -34,8 +35,11 @@ def sampled_code_table(prns, plan: SignalPlan, dtype=np.float32) -> np.ndarray:
     return np.stack(rows)
 
 
-def code_fft_conj(prns, plan: SignalPlan, device="cpu") -> torch.Tensor:
-    """conj(FFT) of the sampled codes, precomputed once per PRN set."""
+def code_fft_conj(prns, plan: SignalPlan, device="cuda") -> torch.Tensor:
+    """conj(FFT) of the sampled codes, precomputed once per PRN set, on
+    ``device``: the card unless the caller asks for the CPU; raises
+    without a card."""
+    device = card_or_cpu(device, "code_fft_conj")
     table = torch.as_tensor(sampled_code_table(prns, plan), device=device)
     return torch.fft.fft(table, dim=-1).conj().resolve_conj()
 

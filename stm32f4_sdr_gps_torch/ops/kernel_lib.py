@@ -142,7 +142,9 @@ def _load(name: str, compiler: list, sources: list, signatures: dict,
 def ptxas_report(log: str, kernel: str) -> list:
     """For each entry function whose name contains ``kernel``, in the
     ``ptxas -v`` lines of a build's log (``build_info[name]["log"]``), a
-    dict of its name, registers, stack frame bytes and spill bytes."""
+    dict of its name, registers, stack frame bytes, spill bytes, static
+    shared memory bytes (``smem``) and named barriers (both 0 where ptxas
+    names none)."""
     report, cur = [], None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '([^']+)'", line)
@@ -159,7 +161,11 @@ def ptxas_report(log: str, kernel: str) -> list:
                        spill_loads=int(frame[3]))
         regs = re.search(r"Used (\d+) registers", line)
         if cur is not None and regs:
-            cur["registers"] = int(regs[1])
+            smem = re.search(r"(\d+) bytes smem", line)
+            bars = re.search(r"used (\d+) barriers", line)
+            cur.update(registers=int(regs[1]),
+                       smem=int(smem[1]) if smem else 0,
+                       barriers=int(bars[1]) if bars else 0)
     return report
 
 

@@ -22,6 +22,15 @@ def check_tensor(name: str, t: torch.Tensor, shape: tuple, dtype,
         raise ValueError(f"{name} must be contiguous")
 
 
+def check_aligned16(**tensors) -> None:
+    """Raise ValueError unless each tensor's data starts on a 16-byte
+    boundary (the kernels' 16-byte loads and stores)."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary "
+                             f"(data_ptr {t.data_ptr():#x})")
+
+
 def stream(device) -> int:
     """The current CUDA stream of ``device`` as an int for ctypes."""
     return torch.cuda.current_stream(device).cuda_stream

@@ -195,6 +195,28 @@ def ns_per_iter(variant: str, x: torch.Tensor, k: int = K,
                      SLEEP_CYCLES) * 1e6 / (g * ITERS)
 
 
+# the dependent-issue latency of an FP32 or INT32 arithmetic instruction
+# (FFMA, FADD, FSEL, FSETP, IADD3, LOP3, IMNMX) on the card, in cycles
+ALU_LATENCY_CYCLES = 4
+# the instruction each pair of an op issues once (twice for fma), by which
+# chip_smoke.py counts the pairs in a loop trip of chain_kernel's SASS
+PAIR_MARKER = {"fma": ("FFMA", 2), "sel": ("FSETP", 1), "int": ("LOP3", 1)}
+
+
+def latency_bound_ns(variant: str, dep: float, issue: float, mhz: float,
+                     k: int = K) -> float:
+    """The least time of one iteration in ns at an SM clock of ``mhz``:
+    the larger of one chain's ``k`` dependent pairs (``k / 4`` for ilp) at
+    ``dep`` dependent instructions a pair, each ALU_LATENCY_CYCLES long,
+    and the instructions of all the channel's chains (``issue`` a pair)
+    issued one a cycle by its warp (C <= 32 channels are one warp)."""
+    rows = {"c1": 1, "lc": 1, "k4": 4, "ilp": 4, "fc": 8, "kc": 16}[
+        variant.split("_")[0]]
+    pairs = k // 4 if variant.startswith("ilp") else k
+    cycles = max(pairs * dep * ALU_LATENCY_CYCLES, rows * pairs * issue)
+    return cycles / mhz * 1e3
+
+
 def run(variants=VARIANTS, c: int = C, k: int = K, g: int = G) -> dict:
     """The probe on the card: each variant on the probe's inputs; ns per
     iteration and per op pair printed, and returned by variant."""

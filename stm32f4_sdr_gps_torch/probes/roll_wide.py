@@ -23,7 +23,9 @@ or the rows that are wrong:
   ``emit_correlators``.
 
 P1 and P2 run one kernel, ``roll_rows_kernel`` (``csrc/roll.cu``), P3
-``barrel_kernel``.  Each wrapper launches for CUDA tensors, raises for
+``barrel_kernel``, a gather of E, P and L at the composed index of the
+rebuild roll, the barrel's stages and P's and L's rolls; the plain
+version keeps the tool's stage-by-stage form.  Each wrapper launches for CUDA tensors, raises for
 CPU tensors and counts its launches (``launches``); beside it are its
 plain torch version (``PLAIN``, a torch.roll per row as the tool's jnp.roll
 reference) and the one-call gather with a prebuilt index
@@ -46,7 +48,7 @@ import torch
 
 from ..ops.epl import S, U2P, upsampled_code_doubled
 from ..signal.ca_code import ca_table_bipolar
-from .common import check_tensor, queued_ms, stream
+from .common import check_aligned16, check_tensor, queued_ms, stream
 
 ROWS = 8
 WIN = 2176                    # K1's replica window, 2048 + 128 lanes
@@ -58,6 +60,7 @@ MCS = [1, 9, 600, 1023, 1500, 2000, 2045, 2046]     # :155
 CHECK_SEED = 3
 CASES = ["dynu2_neg", "dynu2_pos", "dynwin_neg", "dynwin_pos", "statwin",
          "barrel"]
+ODD_WIDTH = WIN - 1           # a width the 16-byte path does not take
 
 
 def width(case: str) -> int:
@@ -86,13 +89,15 @@ def probe_inputs(case: str, rows: int = ROWS) -> tuple:
     return x, -amt if case.endswith("_neg") else amt
 
 
-def seeded_inputs(case: str, seed: int = CHECK_SEED,
-                  rows: int = ROWS) -> tuple:
+def seeded_inputs(case: str, seed: int = CHECK_SEED, rows: int = ROWS,
+                  lanes: int | None = None) -> tuple:
     """Seeded inputs: uniform rows in [-1, 1) (every lane distinct), amounts
     up to three widths in size of the case's sign (either sign for
-    statwin); for the barrel mc anywhere in [1, 2046] and es in [0, 15]."""
+    statwin); for the barrel mc anywhere in [1, 2046] and es in [0, 15].
+    ``lanes`` replaces a roll case's lane width (ODD_WIDTH: the kernel's
+    scalar path)."""
     rng = np.random.default_rng(seed)
-    w = width(case)
+    w = lanes or width(case)
     x = rng.uniform(-1.0, 1.0, (rows, w)).astype(np.float32)
     if case == "barrel":
         return (x, rng.integers(1, S + 1, rows).astype(np.int32),
@@ -105,11 +110,13 @@ def seeded_inputs(case: str, seed: int = CHECK_SEED,
     return x, amt
 
 
-def check_args(case: str, which: str, device="cpu", rows: int = ROWS) -> tuple:
+def check_args(case: str, which: str, device="cpu", rows: int = ROWS,
+               lanes: int | None = None) -> tuple:
     """A case's kernel (and plain version) arguments on the tool's inputs
-    (``which="probe"``) or the seeded ones."""
+    (``which="probe"``) or the seeded ones (at ``lanes`` lanes, if
+    given)."""
     arrays = (probe_inputs(case, rows) if which == "probe"
-              else seeded_inputs(case, CHECK_SEED, rows))
+              else seeded_inputs(case, CHECK_SEED, rows, lanes))
     return tuple(torch.as_tensor(a, device=device) for a in arrays)
 
 
@@ -150,7 +157,9 @@ def barrel_reference(u2: torch.Tensor, mc: torch.Tensor,
 def launch_roll_rows(x: torch.Tensor, amt: torch.Tensor, src_row: int = -1,
                      out: torch.Tensor | None = None) -> torch.Tensor:
     """Launch roll_rows_kernel (csrc/roll.cu) on an (R, W) float32 plane x
-    and (R,) int32 amounts on the card; the callers count their launches."""
+    and (R,) int32 amounts on the card; the callers count their launches.
+    Where W % 4 == 0 (the kernel's 16-byte stores) ``out`` must start on a
+    16-byte boundary."""
     from ..ops.kernel_lib import roll_lib
 
     if not x.is_cuda:
@@ -164,6 +173,8 @@ def launch_roll_rows(x: torch.Tensor, amt: torch.Tensor, src_row: int = -1,
         raise ValueError(f"src_row {src_row} outside [-1, {r})")
     out = torch.empty_like(x) if out is None else out
     check_tensor("out", out, (r, w), torch.float32, x.device)
+    if w % 4 == 0:
+        check_aligned16(out=out)
     with torch.cuda.device(x.device):
         rc = roll_lib().roll_rows_launch(x.data_ptr(), amt.data_ptr(),
                                          out.data_ptr(), r, w, src_row,
@@ -196,7 +207,7 @@ statwin_cuda.launches = 0
 def barrel_cuda(u2, mc, es, out=None) -> tuple:
     """P3 on the card: (E, P, L), each (R, WIN) float32, from u2 (R, 4352)
     float32 and mc, es (R,) int32.  ``out``, if given, is the (E, P, L)
-    triple to write."""
+    triple to write, each starting on a 16-byte boundary."""
     from ..ops.kernel_lib import roll_lib
 
     if not u2.is_cuda:
@@ -210,6 +221,7 @@ def barrel_cuda(u2, mc, es, out=None) -> tuple:
                                 device=u2.device) for _ in range(3))
     for name, t in zip("EPL", out):
         check_tensor(name, t, (r, WIN), torch.float32, u2.device)
+    check_aligned16(**dict(zip("EPL", out)))
     if r == 0:
         return out
     with torch.cuda.device(u2.device):

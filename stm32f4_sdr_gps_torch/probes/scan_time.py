@@ -22,7 +22,12 @@ times
   launch, 10 launches queued behind a device sleep;
 * P7 and P8, every variant at full size (G = 128) on the probes' inputs
   at 32 and 4 channels: ns per iteration (the probes' ``ns_per_iter``,
-  launches queued behind a device sleep), after a warm-up.
+  launches queued behind a device sleep), after a warm-up;
+* P6, its fma variants at the tool's size (C = 32, K = 64, G = 128): ns
+  per iteration the same way, and the SM clock that ``nvidia-smi`` reads
+  while the chains run (:func:`sm_clocks_under`);
+* P1-P4, every case on the tools' inputs at 8, 32 and 128 rows: device
+  time per launch in us, 20 launches queued behind a device sleep.
 
 Prints one JSON line per run and the card's ``nvidia-smi`` name and power
 limit; exits 1 without a card.  Run as a script, the file imports the package only from ROOT, so
@@ -132,6 +137,8 @@ def _time_one(root: str) -> dict:
     res.update(_loop_s(st, x, u2))
     res.update(_p5_times())
     res.update(_forest_times())
+    res.update(_chain_times())
+    res.update(_roll_times())
     return res
 
 
@@ -222,6 +229,82 @@ def _forest_times() -> dict:
                 x8, w8 = (torch.as_tensor(a, device="cuda")
                           for a in p8.probe_inputs(v, c))
                 res[f"p8_{v}_ns_{c}ch"] = p8.ns_per_iter(v, x8, w8)
+    return res
+
+
+def sm_clocks_under(launch, seconds: float = 1.5) -> dict:
+    """The SM clock in MHz (median, min and max of ``nvidia-smi`` samples
+    every 100 ms) and its maximum, read while ``launch`` runs back to back
+    on the card for ``seconds`` (after 0.3 s that raise the clocks)."""
+    import time
+
+    import torch
+
+    from stm32f4_sdr_gps_torch.probes.common import warm_up
+
+    warm_up(launch)
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, text=True)
+    try:
+        t_end = time.perf_counter() + seconds
+        while time.perf_counter() < t_end:
+            for _ in range(20):
+                launch()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        text = smi.communicate(timeout=30)[0]
+    samples = [[float(v) for v in line.split(",")]
+               for line in text.splitlines() if line.count(",") == 1]
+    if not samples:
+        raise RuntimeError("nvidia-smi gave no clock samples")
+    sm = [s for s, _ in samples]
+    return {"sm_mhz": statistics.median(sm), "sm_mhz_min": min(sm),
+            "sm_mhz_max": max(sm), "sm_max_mhz": samples[-1][1],
+            "samples": len(sm)}
+
+
+def _chain_times() -> dict:
+    """P6's fma variants: ns per iteration at the tool's size, and the SM
+    clock while c1_fma runs."""
+    import torch
+
+    from stm32f4_sdr_gps_torch.probes import forest_chain as p6
+    from stm32f4_sdr_gps_torch.probes.common import warm_up
+
+    res = {}
+    for v in [v for v in p6.VARIANTS if v.endswith("_fma")]:
+        x = torch.as_tensor(p6.probe_inputs(v, p6.C), device="cuda")
+        warm_up(lambda: p6.chain_cuda(x, v, p6.K, p6.G))
+        res[f"p6_{v}_ns"] = p6.ns_per_iter(v, x, p6.K, p6.G)
+    x = torch.as_tensor(p6.probe_inputs("c1_fma", p6.C), device="cuda")
+    res["p6_clocks"] = sm_clocks_under(
+        lambda: p6.chain_cuda(x, "c1_fma", p6.K, p6.G))
+    return res
+
+
+def _roll_times() -> dict:
+    """P1-P4: each case's device time per launch (us) on the tools'
+    inputs at 8, 32 and 128 rows."""
+    import torch
+
+    from stm32f4_sdr_gps_torch.probes import mosaic_bisect, roll_wide
+    from stm32f4_sdr_gps_torch.probes.common import (SLEEP_CYCLES,
+                                                     queued_ms, warm_up)
+
+    res = {}
+    for mod in (roll_wide, mosaic_bisect):
+        for case in mod.CASES:
+            fn = mod.KERNELS[case]
+            for rows in (8, 32, 128):
+                args = mod.check_args(case, "probe", "cuda", rows)
+                out = fn(*args)
+                warm_up(lambda: fn(*args, out=out), 0.1)
+                res[f"{case}_us_{rows}rows"] = queued_ms(
+                    lambda: fn(*args, out=out), 5, 20, SLEEP_CYCLES) * 1e3
+    torch.cuda.synchronize()
     return res
 
 

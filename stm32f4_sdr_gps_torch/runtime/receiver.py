@@ -58,6 +58,7 @@ from ..signal.ca_code import ca_table_bipolar
 from ..track.pretrack import refine_code_phase
 from ..track.scan import track_block
 from ..track.state import TrackOutputs, TrackState, init_state
+from ..utils.device import card_or_cpu
 from ..utils.profiling import Profiler
 from .digest import cn0_from_moments, digest_block, digest_to_host
 
@@ -187,11 +188,7 @@ class Receiver:
     the CPU."""
 
     def __init__(self, config: ReceiverConfig, device="cuda"):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"Receiver(device={device!r}): CUDA is not "
-                               "available; pass device='cpu' to run on the "
-                               "CPU")
+        self.device = card_or_cpu(device, "Receiver")
         if config.track.coherent_pll:
             raise NotImplementedError(
                 "coherent_pll through the Receiver (the 256-epoch "

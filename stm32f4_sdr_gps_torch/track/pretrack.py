@@ -17,6 +17,7 @@ import torch
 from ..config import SignalPlan, TrackConfig
 from ..ops.replica import sample_replicas
 from ..ops.wipeoff import carrier_wipeoff
+from ..utils.device import card_or_cpu
 
 
 def _pretrack_power(
@@ -56,9 +57,12 @@ def refine_code_phase(
     plan: SignalPlan,
     cfg: TrackConfig = TrackConfig(),
     num_epochs: int | None = None,
-    device="cpu",
+    device="cuda",
 ) -> np.ndarray:
-    """Return refined (C,) code phases (chips, sub-half-chip accurate)."""
+    """Return refined (C,) code phases (chips, sub-half-chip accurate),
+    computed on ``device``: the card unless the caller asks for the CPU;
+    raises without a card."""
+    device = card_or_cpu(device, "refine_code_phase")
     s_cnt = plan.samples_per_epoch
     e = min(num_epochs or cfg.pre_track_epochs, len(samples) // s_cnt)
     epochs = torch.as_tensor(

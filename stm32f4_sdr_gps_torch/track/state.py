@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..config import CODE_LENGTH, TrackConfig
+from ..utils.device import card_or_cpu
 
 
 class TrackState(NamedTuple):
@@ -94,10 +95,13 @@ def init_state(
     doppler_hz: np.ndarray,
     start_epoch: int = 0,
     window: int | None = None,
-    device="cpu",
+    device="cuda",
 ) -> TrackState:
     """``window`` = watchdog sign-window width; must equal the
-    TrackConfig.pll_check_window the state will be scanned with."""
+    TrackConfig.pll_check_window the state will be scanned with.  The
+    state lives on ``device``: the card unless the caller asks for the
+    CPU; raises without a card."""
+    device = card_or_cpu(device, "init_state")
     c = num_channels
     if window is None:
         window = TrackConfig().pll_check_window

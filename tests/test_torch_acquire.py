@@ -48,7 +48,7 @@ def test_acquire_matches_jax(capture, hinted):
     want = jeng.acquire(capture, list(SEARCH), BASEBAND_PLAN, JAcqConfig(),
                         doppler_hints_hz=hints)
     got = teng.acquire(capture, list(SEARCH), T_PLAN, AcqConfig(),
-                       doppler_hints_hz=hints)
+                       doppler_hints_hz=hints, device="cpu")
     assert [r.detected for r in got] == [r.detected for r in want]
     assert [r.detected for r in got] == [True] * 4 + [False] * 2
     for g, w in zip(got, want):
@@ -75,7 +75,7 @@ def test_acquisition_power_coherent_matches_jax():
         j_rot(jnp.asarray(bins), S, BASEBAND_PLAN.sample_rate_hz),
         coherent=2))
     got = teng.acquisition_power(
-        torch.as_tensor(ep), code_fft_conj(prns, T_PLAN),
+        torch.as_tensor(ep), code_fft_conj(prns, T_PLAN, device="cpu"),
         doppler_rotations(torch.as_tensor(bins), S, T_PLAN.sample_rate_hz),
         coherent=2).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-4,
@@ -103,7 +103,7 @@ def test_handoff_matches_jax(capture):
     want_cp = j_refine_code_phase(capture, table, cp, fine, BASEBAND_PLAN,
                                   JTrack())
     got_cp = refine_code_phase(capture, table, cp, fine, T_PLAN,
-                               TrackConfig())
+                               TrackConfig(), device="cpu")
     assert _cp_dist(got_cp, want_cp).max() < 0.05
 
 
@@ -111,4 +111,5 @@ def test_handoff_matches_jax(capture):
                                     dict(edge_hypotheses=4)])
 def test_unported_acquisition_modes_raise(capture, change):
     with pytest.raises(NotImplementedError):
-        teng.acquire(capture, [2], T_PLAN, AcqConfig(**change))
+        teng.acquire(capture, [2], T_PLAN, AcqConfig(**change),
+                     device="cpu")

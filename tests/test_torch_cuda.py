@@ -21,7 +21,9 @@ P5's sums: 1e-4 of the largest (float32 sums over T steps of 2048-term
 row sums, in other orders on the two sides).  P6-P8: each probe module's
 ``tolerance`` (its docstring says why), at the check size on the probe's
 inputs and on seeded ones.  P1-P4: bit for bit (a roll is a copy), at 8,
-32 and 128 rows on the tools' inputs and on seeded ones.
+32 and 128 rows on the tools' inputs and on seeded ones, and at an odd
+width (the row kernel's scalar path); the wrappers refuse outputs off a
+16-byte boundary where the kernels store 16 bytes a thread.
 """
 
 import numpy as np
@@ -311,7 +313,8 @@ def test_per_epoch_scan_on_kernel_matches_cpu(dev):
     ep, sats = _scenario(90)
     st = init_state(len(PRNS),
                     np.array([s.code_phase_chips + 0.1 for s in sats]),
-                    np.array([s.doppler_hz + 15.0 for s in sats]))
+                    np.array([s.doppler_hz + 15.0 for s in sats]),
+                    device="cpu")
     u2 = torch.as_tensor(upsampled_code_doubled(ca_table_bipolar(PRNS)))
     x = torch.as_tensor(ep)
     n0 = epl.epl_correlate_cuda.launches
@@ -522,3 +525,47 @@ def test_roll_kernel_matches_plain_version(dev, mod, case, which, rows):
     got, want = ((t if isinstance(t, tuple) else (t,)) for t in (got, want))
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("rows", [8, 32, 128])
+@pytest.mark.parametrize("case", ["dynwin_neg", "dynwin_pos", "statwin"])
+def test_roll_kernel_odd_width(dev, case, rows):
+    """At a width that is no multiple of 4 (rows off 16-byte boundaries)
+    the kernel's scalar path, bit for bit."""
+    args = roll_wide.check_args(case, "seeded", dev, rows,
+                                roll_wide.ODD_WIDTH)
+    got = roll_wide.KERNELS[case](*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, roll_wide.PLAIN[case](*args))
+
+
+def _misaligned(shape, dev):
+    n = int(np.prod(shape))
+    return torch.empty(n + 4, device=dev)[1:n + 1].view(shape)
+
+
+def test_roll_kernels_refuse_a_misaligned_out(dev):
+    """The 16-byte stores need 16-byte aligned rows: the wrappers refuse
+    an out off a 16-byte boundary, and launch nothing; at an odd width the
+    scalar path takes it.  x may start anywhere (scalar loads)."""
+    x, amt = roll_wide.check_args("dynwin_pos", "seeded", dev)
+    n0 = roll_wide.dyn_roll_cuda.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        roll_wide.dyn_roll_cuda(x, amt, out=_misaligned(x.shape, dev))
+    assert roll_wide.dyn_roll_cuda.launches == n0
+    x_off = _misaligned(x.shape, dev)
+    x_off.copy_(x)
+    got = roll_wide.dyn_roll_cuda(x_off, amt)
+    torch.cuda.synchronize()
+    assert torch.equal(got, roll_wide.roll_rows_reference(x, amt))
+    args = roll_wide.check_args("barrel", "seeded", dev)
+    for k in range(3):
+        out = [torch.empty((8, roll_wide.WIN), device=dev) for _ in range(3)]
+        out[k] = _misaligned((8, roll_wide.WIN), dev)
+        with pytest.raises(ValueError, match="16-byte"):
+            roll_wide.barrel_cuda(*args, out=tuple(out))
+    x, amt = roll_wide.check_args("dynwin_pos", "seeded", dev,
+                                  lanes=roll_wide.ODD_WIDTH)
+    out = roll_wide.dyn_roll_cuda(x, amt, out=_misaligned(x.shape, dev))
+    torch.cuda.synchronize()
+    assert torch.equal(out, roll_wide.roll_rows_reference(x, amt))

@@ -1,0 +1,58 @@
+"""The port's entry points run on the card unless the caller asks for the
+CPU, and raise where there is no card: acquisition, the pre-track code
+refinement, the tracking state, the code FFT table, the Receiver and
+entry() (the last two also in test_torch_receiver.py).  On the CPU each
+call passes device="cpu"."""
+
+import numpy as np
+import pytest
+import torch
+
+from stm32f4_sdr_gps_torch.acquire.engine import acquire
+from stm32f4_sdr_gps_torch.config import BASEBAND_PLAN, ReceiverConfig
+from stm32f4_sdr_gps_torch.entry import entry
+from stm32f4_sdr_gps_torch.ops.correlate import code_fft_conj
+from stm32f4_sdr_gps_torch.runtime.receiver import Receiver
+from stm32f4_sdr_gps_torch.signal.ca_code import ca_table_bipolar
+from stm32f4_sdr_gps_torch.track.pretrack import refine_code_phase
+from stm32f4_sdr_gps_torch.track.state import init_state
+from stm32f4_sdr_gps_torch.utils.device import card_or_cpu
+
+S = BASEBAND_PLAN.samples_per_epoch
+_X = np.zeros(12 * S, np.complex64)
+
+CALLS = {
+    "acquire": lambda **kw: acquire(_X, [1, 2], BASEBAND_PLAN, **kw),
+    "refine_code_phase": lambda **kw: refine_code_phase(
+        _X, ca_table_bipolar([1]), np.array([10.0]), np.array([0.0]),
+        BASEBAND_PLAN, num_epochs=2, **kw),
+    "init_state": lambda **kw: init_state(2, np.zeros(2), np.zeros(2), **kw),
+    "code_fft_conj": lambda **kw: code_fft_conj([1, 2], BASEBAND_PLAN, **kw),
+    "Receiver": lambda **kw: Receiver(ReceiverConfig(prns=(1,)), **kw),
+    "entry": lambda **kw: entry(num_channels=2, num_epochs=2, **kw),
+}
+
+
+@pytest.mark.parametrize("name", list(CALLS))
+def test_default_device_is_the_card(name):
+    """Called without a device, as the JAX package's counterparts are
+    called, each raises on a machine without a card, and names the way
+    to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError,
+                       match=rf"{name}\(device='cuda'\).*device='cpu'"):
+        CALLS[name]()
+
+
+@pytest.mark.parametrize("name", list(CALLS))
+def test_cpu_on_request(name):
+    CALLS[name](device="cpu")
+
+
+def test_card_or_cpu():
+    assert card_or_cpu("cpu", "f") == torch.device("cpu")
+    assert card_or_cpu(torch.device("cpu"), "f").type == "cpu"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match=r"f\(device='cuda:0'\)"):
+            card_or_cpu("cuda:0", "f")

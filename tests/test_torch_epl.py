@@ -118,7 +118,8 @@ def _track(num_epochs, monkeypatch=None):
     u2 = torch.as_tensor(epl.upsampled_code_doubled(ca_table_bipolar(PRNS)))
     st = init_state(len(PRNS),
                     np.array([s.code_phase_chips + 0.1 for s in sats]),
-                    np.array([s.doppler_hz + 15.0 for s in sats]))
+                    np.array([s.doppler_hz + 15.0 for s in sats]),
+                    device="cpu")
     cfg = TrackConfig(codes_in_bit=CIB, use_pallas=True,
                       in_kernel_scan=False, pll_bad_state_threshold=10**6)
     return track_block(st, epochs, u2, BASEBAND_PLAN, cfg)
@@ -172,7 +173,7 @@ def _k1_epoch_sums(scan, x, u2, cp, dop, ph):
     from stm32f4_sdr_gps_torch.ops.track_scan import state_from_track_state
 
     ps = state_from_track_state(init_state(
-        u2.shape[0], cp.numpy(), dop.numpy()))
+        u2.shape[0], cp.numpy(), dop.numpy(), device="cpu"))
     ps.f32[0], ps.f32[1], ps.f32[2] = cp, dop, ph
     _, out = scan(ps, x[None], u2, BASEBAND_PLAN,
                   TrackConfig(emit_correlators=True))

@@ -76,16 +76,24 @@ ptxas info    : Compiling entry function '_Z10epl_kernelPKfS0_' for 'sm_90a'
 ptxas info    : Function properties for _Z10epl_kernelPKfS0_
     256 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
 ptxas info    : Used 40 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z13barrel_kernelPKf' for 'sm_90a'
+ptxas info    : Function properties for _Z13barrel_kernelPKf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 24 registers, used 2 barriers, 8704 bytes smem, 392 bytes cmem[0]
 """
 
 
 def test_ptxas_report():
     k1 = kernel_lib.ptxas_report(PTXAS_LOG, "track_scan_kernel")
     assert k1 == [{"name": K1_ENTRY, "stack": 0, "spill_stores": 0,
-                   "spill_loads": 0, "registers": 102}]
+                   "spill_loads": 0, "registers": 102, "smem": 0,
+                   "barriers": 1}]
     k2 = kernel_lib.ptxas_report(PTXAS_LOG, "epl_kernel")
     assert [(k["stack"], k["spill_stores"], k["spill_loads"],
-             k["registers"]) for k in k2] == [(256, 8, 12, 40)]
+             k["registers"], k["smem"]) for k in k2] == [(256, 8, 12, 40, 0)]
+    p3 = kernel_lib.ptxas_report(PTXAS_LOG, "barrel_kernel")
+    assert [(k["registers"], k["smem"], k["barriers"]) for k in p3] == [
+        (24, 8704, 2)]
     assert kernel_lib.ptxas_report("cached", "track_scan_kernel") == []
 
 

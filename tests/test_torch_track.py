@@ -79,7 +79,7 @@ def test_track_block_matches_jax(half_chip):
         j_init_state(len(PRNS), cp0, dop0), jnp.asarray(epochs),
         jnp.asarray(code), PLAN, jcfg)
     cfg = _torch_cfg(use_pallas=half_chip, pll_bad_state_threshold=10**6)
-    st, out = track_block(init_state(len(PRNS), cp0, dop0),
+    st, out = track_block(init_state(len(PRNS), cp0, dop0, device="cpu"),
                           torch.as_tensor(epochs), torch.as_tensor(code),
                           T_PLAN, cfg)
     _assert_outputs_match(out_ref, out)
@@ -100,7 +100,8 @@ def test_kernel_plain_version_matches_jax_kernel(window):
     cfg = _torch_cfg(pll_check_window=window, in_kernel_scan=True,
                      pll_bad_state_threshold=10**6)
     calls = ts.track_scan_reference.calls
-    st, out = track_block(init_state(len(PRNS), cp0, dop0, window=window),
+    st, out = track_block(init_state(len(PRNS), cp0, dop0, window=window,
+                                     device="cpu"),
                           torch.as_tensor(epochs), torch.as_tensor(u2),
                           T_PLAN, cfg)
     assert ts.track_scan_reference.calls == calls + 1
@@ -137,7 +138,7 @@ def test_kernel_plain_version_watchdog_kick_matches_jax():
         jnp.asarray(u2), PLAN, _jax_cfg(**KICK), interpret=True)
     ps, raw = ts.track_scan_reference(
         ts.state_from_track_state(init_state(len(PRNS), cp0, dop0,
-                                             window=8)),
+                                             window=8, device="cpu")),
         torch.as_tensor(epochs), torch.as_tensor(u2), T_PLAN,
         _torch_cfg(**KICK))
     st = ts.state_to_track_state(ps)
@@ -159,7 +160,8 @@ def test_kernel_plain_version_split_equals_full(split):
     u2 = torch.as_tensor(upsampled_code_doubled(table))
     x = torch.as_tensor(epochs)
     cfg = _torch_cfg(pll_bad_state_threshold=10**6)
-    ps0 = ts.state_from_track_state(init_state(len(PRNS), cp0, dop0))
+    ps0 = ts.state_from_track_state(init_state(len(PRNS), cp0, dop0,
+                                                device="cpu"))
     ps_f, out_f = ts.track_scan_reference(ps0, x, u2, T_PLAN, cfg)
     ps_a, out_a = ts.track_scan_reference(ps0, x[:split], u2, T_PLAN, cfg)
     ps_b, out_b = ts.track_scan_reference(ps_a, x[split:], u2, T_PLAN, cfg)
@@ -182,7 +184,7 @@ def test_host_build_matches_plain_version(kick):
            else _torch_cfg(pll_bad_state_threshold=10**6))
     w = cfg.pll_check_window
     ps0 = ts.state_from_track_state(
-        init_state(len(PRNS), cp0, dop0, window=w))
+        init_state(len(PRNS), cp0, dop0, window=w, device="cpu"))
     ps_h, out_h = ts.track_scan_host(ps0, x, u2, T_PLAN, cfg)
     ps_r, out_r = ts.track_scan_reference(ps0, x, u2, T_PLAN, cfg)
     assert torch.equal(ps_h.i32, ps_r.i32)
@@ -212,7 +214,8 @@ def test_lcg_bit_exact():
 
 
 def test_scan_state_pack_roundtrip_and_convert():
-    st0 = init_state(8, np.linspace(0, 1000, 8), np.linspace(-4e3, 4e3, 8))
+    st0 = init_state(8, np.linspace(0, 1000, 8), np.linspace(-4e3, 4e3, 8),
+                     device="cpu")
     st1 = ts.state_to_track_state(ts.state_from_track_state(st0))
     for f in st0._fields:
         assert torch.equal(getattr(st0, f), getattr(st1, f)), f
@@ -235,7 +238,7 @@ def test_track_block_dispatch_by_device():
     True runs the kernel's plain version there."""
     epochs, table, cp0, dop0 = _setup(8)
     x = torch.as_tensor(epochs)
-    st = init_state(len(PRNS), cp0, dop0)
+    st = init_state(len(PRNS), cp0, dop0, device="cpu")
     calls = ts.track_scan_reference.calls
     track_block(st, x, torch.as_tensor(table), T_PLAN, _torch_cfg())
     assert ts.track_scan_reference.calls == calls
@@ -287,7 +290,7 @@ def test_kernel_plain_version_mode_matches_jax_kernel(mode):
     cfg = _torch_cfg(in_kernel_scan=True, pll_bad_state_threshold=10**6,
                      **change)
     calls = ts.track_scan_reference.calls
-    st, out = track_block(init_state(len(PRNS), cp0, dop0),
+    st, out = track_block(init_state(len(PRNS), cp0, dop0, device="cpu"),
                           torch.as_tensor(epochs), torch.as_tensor(u2),
                           T_PLAN, cfg)
     assert ts.track_scan_reference.calls == calls + 1
@@ -308,7 +311,7 @@ def test_track_block_mode_matches_jax(mode):
         j_init_state(len(PRNS), cp0, dop0), jnp.asarray(epochs),
         jnp.asarray(table), PLAN,
         _jax_cfg(pll_bad_state_threshold=10**6, **change))
-    st, out = track_block(init_state(len(PRNS), cp0, dop0),
+    st, out = track_block(init_state(len(PRNS), cp0, dop0, device="cpu"),
                           torch.as_tensor(epochs), torch.as_tensor(table),
                           T_PLAN,
                           _torch_cfg(pll_bad_state_threshold=10**6, **change))
@@ -328,7 +331,8 @@ def test_host_build_mode_matches_plain_version(mode):
     epochs, table, cp0, dop0 = _setup(MODE_EPOCHS)
     u2 = torch.as_tensor(upsampled_code_doubled(table))
     cfg = _torch_cfg(pll_bad_state_threshold=10**6, **MODES[mode])
-    ps0 = ts.state_from_track_state(init_state(len(PRNS), cp0, dop0))
+    ps0 = ts.state_from_track_state(init_state(len(PRNS), cp0, dop0,
+                                                device="cpu"))
     x = torch.as_tensor(epochs)
     ps_h, out_h = ts.track_scan_host(ps0, x, u2, T_PLAN, cfg)
     ps_r, out_r = ts.track_scan_reference(ps0, x, u2, T_PLAN, cfg)
