@@ -103,7 +103,50 @@ before the result line):
    16-byte stores (STG.E.128), three a thread in barrel_kernel; then the
    two entry points, roll_wide and mosaic_bisect, each with every stage.
    The kernels line has one record per kernel wrapper (P1's four cases
-   share dyn_roll_cuda, P4's two roll_cuda), each case's numbers inside.
+   share dyn_roll_cuda, P4's two roll_cuda), each case's numbers inside;
+11. the weak-signal chain at 32 dBHz: ``Receiver.run`` on the card with
+   ``DEEP_ACQ`` + ``COHERENT_TRACK`` (``track_block_epochs=1000``) on a
+   36 s, 4-satellite ``fix_scenario``: fix within 500 m, |vel| < 10 m/s,
+   every channel bit synced by the aided histogram search (at least one
+   engagement each) with a full ephemeris set, every block through K1's
+   ``coherent_pll`` mode and nothing else; wall time, ``track`` ms a
+   block and acquisition ms;
+12. the same at 29 dBHz on a 66 s capture with the frame sent twice,
+   ``ULTRA_ACQ`` (10 bit-edge hypotheses on the card) +
+   ``DEEP_COHERENT_TRACK`` (K1 with ``pll_ext_bits = 5``);
+13. background re-acquisition and demotion: the two runs of
+   tests/test_late_rise.py (the riser joins) and the setting capture with
+   a 35 dBHz C/N0 floor (PRN 18 drops and re-joins; at the default floor
+   neither package drops it); every block through K1 at the channel count
+   it starts with, and the watchdog rows, code rows and carried watchdog
+   window following the channels;
+14. phase 4's capture with ``enable_rtcm=True``: every frame passes its
+   CRC-24Q, each satellite's 1019 decodes to its ephemeris, the MSM5
+   pseudoranges at the fix's epoch lie within 100 m of the fixed position
+   (clock removed); a checkpoint at half the capture, loaded with no
+   device (so on the card), continues to the same bits, framer history,
+   ephemerides and RTCM frames as an uninterrupted run whose K1 carry is
+   dropped at the same block, its state planes to phase 3's tolerances;
+   the fix of the resumed run beside that of the run keeping its carry;
+   the counts are set to 0 before each of the three runs, and each run
+   launches K1 once for each of its track-stage calls (the resumed run's
+   two receivers together) and calls no plain version;
+15. acquisition of PRNs 1-32 on phase 4's capture: the FFT cube and the
+   matmul DFT at "highest" (float32; TF32 off, torch's default) and
+   "default" (bf16 inputs, float32 accumulation and result) give the
+   same detections and Doppler bins; the epoch vote equals its plain version on the CPU and
+   the cube on every PRN it detects (it misses PRN 7, whose votes split
+   between two Doppler bins, as the JAX package's does); each one's
+   CUDA-event time;
+16. the wire format: a 1-bit ``REFERENCE_PLAN`` capture packed into SPI
+   words, conditioned on the card (``reference_to_baseband_device``)
+   against the host conditioner within 1e-5, then
+   ``python -m stm32f4_sdr_gps_torch run <file> --format bits16`` as a
+   subprocess on the card: exit 0, PRN 19 tracking.
+
+The fix-scenario captures are simulated on the host where their phase
+starts (phase 11's and 12's simulation times are printed, not counted in
+the phases' seconds).
 
 Every kernel's record carries its bound: the larger of the bytes it must
 move over 3.35 TB/s and its operations over the peak rate of their type
@@ -538,6 +581,7 @@ def _reset_counts():
         for fn in set(mod.KERNELS.values()):
             fn.launches = 0
     ts.track_scan_cuda.launches = 0
+    ts.track_scan_cuda.by_mode.clear()
     ts.track_scan_reference.calls = 0
     epl.epl_correlate_cuda.launches = 0
     epl.epl_correlate_halfchip.calls = 0
@@ -558,17 +602,18 @@ def _counts():
             "epl_plain": epl.epl_correlate_halfchip.calls}
 
 
-def _run_receiver(sc, track, label):
-    """Receiver.run on the card on the fix scenario; checks the fix and
-    the ephemerides, returns (report, receiver, kernel counts of the
-    run)."""
+def _run_receiver(sc, track, label, acq=None):
+    """Receiver.run on the card on the fix scenario (the default
+    AcqConfig unless ``acq``); checks the fix and the ephemerides, returns
+    (report, receiver, kernel counts of the run)."""
     import numpy as np
     import torch
 
-    from stm32f4_sdr_gps_torch.config import ReceiverConfig
+    from stm32f4_sdr_gps_torch.config import AcqConfig, ReceiverConfig
     from stm32f4_sdr_gps_torch.runtime.receiver import Receiver
 
-    cfg = ReceiverConfig(prns=sc.prns, track=track, track_block_epochs=1000)
+    cfg = ReceiverConfig(prns=sc.prns, track=track, track_block_epochs=1000,
+                         acq=acq or AcqConfig())
     rx = Receiver(cfg)                      # the card, by default
     if rx.device.type != "cuda":
         fail(f"{label}: Receiver(cfg) chose {rx.device}, not the card")
@@ -1274,6 +1319,526 @@ def roll_probes():
     return res, errs, launches, sass_rec
 
 
+# ---------------------------------------------------------------- phases 11-16
+
+# the fix-scenario captures of phases 4-15 (fix_scenario keyword
+# arguments)
+CAPTURES = {
+    "main": dict(num_epochs=29_000),
+    "weak32": dict(num_epochs=36_000, cn0_dbhz=32.0),
+    "weak29": dict(num_epochs=66_000, cn0_dbhz=29.0, frame_repeats=2),
+}
+
+
+def _capture(key):
+    """fix_scenario(**CAPTURES[key]), with its simulation time."""
+    from stm32f4_sdr_gps_torch.signal.scenarios import fix_scenario
+
+    t0 = time.perf_counter()
+    sc = fix_scenario(**CAPTURES[key])
+    print(f"[{key}] simulated {len(sc.samples) / 2.046e6:.1f} s of "
+          f"{len(sc.prns)}-satellite baseband at {CAPTURES[key]} "
+          f"({sc.samples.nbytes / 1e6:.0f} MB) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return sc
+
+
+def _launched(counts_by_mode):
+    """{(mode, C): launches} of the last run, as printable text."""
+    return ", ".join(f"{m} x {c} ch: {n}"
+                     for (m, c), n in sorted(counts_by_mode.items()))
+
+
+def weak_chain(sc, acq, track, label, mode):
+    """The weak-signal chain on the card: ``Receiver.run`` with a deep
+    acquisition preset and a coherent tracking preset from cold start to
+    a fix.  Every channel must be bit synced by the aided search (at least
+    one engagement each) with a full ephemeris set, every block must go
+    through K1 in ``mode`` and nothing else, and the fix must lie within
+    500 m with |vel| < 10 m/s.  Returns its record."""
+    import numpy as np
+
+    from stm32f4_sdr_gps_torch.ops import track_scan as ts
+
+    report, rx, counts, tracked, wall = _run_receiver(sc, track, label,
+                                                      acq=acq)
+    blocks = rx.profiler.stages["track"].calls
+    by_mode = dict(ts.track_scan_cuda.by_mode)
+    modes = {m for m, _ in by_mode}
+    if (counts["track_scan"] != blocks or modes != {mode}
+            or counts["track_scan_plain"] or counts["epl"]
+            or counts["epl_plain"]):
+        fail(f"{label}: {counts}, K1 {_launched(by_mode)} for {blocks} "
+             f"blocks (want every block through K1 in {mode})")
+    for ch in report.channels:
+        n = rx.aided_engagements.get(ch.prn, 0)
+        if not ch.bit_synced or n < 1:
+            fail(f"{label}: PRN {ch.prn} bit_synced {ch.bit_synced}, "
+                 f"{n} aided engagements")
+    stages = rx.profiler.stages
+    rec = {"launches": counts["track_scan"],
+           "fix_error_m": float(np.linalg.norm(
+               report.solutions[-1].rr - sc.rr_true)),
+           "wall_s": wall,
+           "track_ms_per_block": stages["track"].mean_s * 1e3,
+           "acquire_ms": stages["acquire"].total_s * 1e3,
+           "pretrack_ms": stages["pretrack"].total_s * 1e3,
+           "aided_engagements": {int(k): v for k, v in
+                                 sorted(rx.aided_engagements.items())}}
+    print(f"[{label}] K1 {_launched(by_mode)}; aided engagements "
+          f"{rec['aided_engagements']}; acquisition {rec['acquire_ms']:.1f} "
+          f"ms, track {rec['track_ms_per_block']:.2f} ms a block")
+    return rec
+
+
+def _rise_set_captures():
+    """tests/test_late_rise.py's two captures (PRNs 5 and 18 at 47 dBHz,
+    3 codes a bit), made with the port's simulator from the same seeds:
+    PRN 18 rising at 1.2 s, and PRN 18 gone from 1.0 s to 2.5 s."""
+    from stm32f4_sdr_gps_torch.signal.simulator import SimSat, \
+        simulate_capture
+
+    def sats():
+        return (SimSat(prn=5, doppler_hz=1200.0, code_phase_chips=300.0,
+                       cn0_dbhz=47.0, codes_in_bit=3),
+                SimSat(prn=18, doppler_hz=-2400.0, code_phase_chips=700.0,
+                       cn0_dbhz=47.0, codes_in_bit=3))
+
+    a, b = sats()
+    xa, _ = simulate_capture([a], num_epochs=3000, seed=31)
+    xb, truth = simulate_capture([b], num_epochs=3000, seed=32)
+    xb[: 1200 * 2046] = 0
+    rise = (xa + xb, truth)
+    a, b = sats()
+    xa, _ = simulate_capture([a], num_epochs=4000, seed=41)
+    xb, _ = simulate_capture([b], num_epochs=4000, seed=42)
+    xb[1000 * 2046: 2500 * 2046] = 0
+    return rise, (xa + xb, None)
+
+
+def reacquire():
+    """Phase 13: the runs of tests/test_late_rise.py on the card (and the
+    setting capture with a 35 dBHz C/N0 floor, under which the JAX
+    Receiver drops PRN 18 at 2.51 s and re-acquires it at 3.01 s; at the
+    default 25 dBHz it never drops it).  Each block goes through K1 at the
+    block's channel count, and the carried watchdog window has one row
+    per live channel, equal to the TrackState's."""
+    import torch
+
+    from stm32f4_sdr_gps_torch.config import ReceiverConfig, TrackConfig
+    from stm32f4_sdr_gps_torch.ops import track_scan as ts
+    from stm32f4_sdr_gps_torch.runtime.receiver import Receiver
+
+    t0 = time.perf_counter()
+    (x_rise, truth), (x_set, _) = _rise_set_captures()
+    recs = {}
+    for label, x, floor in (("rise", x_rise, 25.0), ("set", x_set, 25.0),
+                            ("set_floor35", x_set, 35.0)):
+        cfg = ReceiverConfig(
+            prns=(5, 18), enable_position=False, track_block_epochs=250,
+            reacquire_period_ms=500, cn0_floor_dbhz=floor,
+            track=TrackConfig(codes_in_bit=3, pll_bad_state_threshold=10**9))
+        rx = Receiver(cfg)
+        live = []
+
+        def after_block(r):
+            c = len(r.channels)
+            if (r.track_state.ip_sign_window.shape[0] != c
+                    or r.code_table.shape[0] != c):
+                fail(f"[reacq] {label}: {c} channels, watchdog rows "
+                     f"{r.track_state.ip_sign_window.shape[0]}, code rows "
+                     f"{r.code_table.shape[0]}")
+            # the carried kernel state, while it is valid, has the
+            # TrackState's watchdog window, one row a channel
+            if r.track_state is r._scan_carry_ref and not torch.equal(
+                    r._scan_carry.win,
+                    ts.state_from_track_state(r.track_state).win):
+                fail(f"[reacq] {label}: carried watchdog window differs")
+            live.append((r.epoch_cursor, tuple(ch.prn for ch in r.channels)))
+
+        _reset_counts()
+        report = rx.run(x, status_callback=after_block)
+        torch.cuda.synchronize()
+        counts, by_mode = _counts(), dict(ts.track_scan_cuda.by_mode)
+        # every block ran K1 at the channel count it started with: the
+        # count after the block before it
+        if ({c for _, c in by_mode} != {len(p) for _, p in live[:-1]}
+                or counts["track_scan"] != len(live)):
+            fail(f"[reacq] {label}: K1 at {_launched(by_mode)}, channel "
+                 f"sets {live}")
+        if counts["track_scan_plain"] or counts["epl"]:
+            fail(f"[reacq] {label}: counts {counts}")
+        by = {ch.prn: ch for ch in report.channels}
+        ok = (5 in by and 18 in by and by[18].state_name == "TRACKING"
+              and abs(by[18].doppler_hz + 2400.0) < 15.0)
+        if label == "rise":
+            cp_true = truth.code_phase_at_epoch(0,
+                                                report.epochs_processed - 1)
+            err = (by[18].code_phase_chips - cp_true + 511.5) % 1023 - 511.5
+            ok = ok and abs(err) < 0.5 and not rx.standby_channels
+            ok = ok and live[0][1] == (5,)
+        if label == "set_floor35":
+            gone = [t for t, p in live if p == (5,)]
+            ok = ok and bool(gone) and 2500 <= gone[0] and gone[-1] < 3500
+        if not ok:
+            fail(f"[reacq] {label}: live sets {live}, final "
+                 f"{[(c.prn, c.state_name, c.doppler_hz) for c in report.channels]}")
+        changes = [(t, p) for i, (t, p) in enumerate(live)
+                   if i == 0 or p != live[i - 1][1]]
+        recs[label] = {"launches": counts["track_scan"],
+                       "launches_by_channels": {
+                           str(c): n for (_, c), n in sorted(by_mode.items())},
+                       "channel_sets": [[t, list(p)] for t, p in changes]}
+        print(f"[reacq] {label}: channel sets {changes}; K1 "
+              f"{_launched(by_mode)}")
+    print(f"[reacq] phase 13 in {time.perf_counter() - t0:.1f} s")
+    return recs
+
+
+def _msm_vs_fix(rx, sol):
+    """Each satellite's MSM5 pseudorange in the frames at the fix's epoch
+    against the range from the fixed position (its own clock removed):
+    returns the largest |residual - median residual| (m) and the frame's
+    TOW."""
+    import numpy as np
+
+    from stm32f4_sdr_gps_torch.io.rtcm3 import decode_msm, deframe
+    from stm32f4_sdr_gps_torch.pvt.gpstime import gpst2time, time2gpst
+    from stm32f4_sdr_gps_torch.pvt.solve import NX, Obs, rescode, satposs
+
+    eph = {ch.prn: ch.eph for ch in rx.channels}
+    week = rx.channels[0].eph.week
+    tow_fix, _ = time2gpst(sol.time)
+    best = None
+    for f in rx.rtcm_frames:
+        p = deframe(f)
+        if (p[0] << 4) | (p[1] >> 4) != 1075:
+            continue
+        d = decode_msm(p)
+        if best is None or abs(d["tow_ms"] / 1e3 - tow_fix) < \
+                abs(best["tow_ms"] / 1e3 - tow_fix):
+            best = d
+    t = gpst2time(week, best["tow_ms"] / 1e3)
+    obs = [Obs(sat=o["sat"], time=t, P=o["pseudorange_m"])
+           for o in best["obs"]]
+    rs, dts, var, svh, _ = satposs(t, obs, eph)
+    x = np.zeros(NX)
+    x[:3] = sol.rr
+    v = rescode(obs, rs, dts, var, svh, eph, x)[0][: len(obs)]
+    return float(np.max(np.abs(v - np.median(v)))), best["tow_ms"], len(obs)
+
+
+def rtcm_checkpoint(sc):
+    """Phase 14: phase 4's capture with enable_rtcm on the card.  Run A
+    keeps K1's carry throughout; run B stops at the block past half the
+    capture, is checkpointed, loaded with no device (so on the card) and
+    continued; run C is A with the carry dropped at B's cut, which is
+    what the resumed receiver does (a checkpoint stores no kernel state).
+    B must equal C: bits, framer history, ephemerides and RTCM frames
+    exactly, the state planes to phase 3's tolerances.  Every frame
+    deframes with a valid CRC-24Q, each satellite's 1019 decodes to its
+    ephemeris, and the MSM5 pseudoranges at the fix's epoch agree with the
+    fixed position within 100 m (clock removed)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from stm32f4_sdr_gps_torch.config import ReceiverConfig
+    from stm32f4_sdr_gps_torch.convert import track_state_to_numpy
+    from stm32f4_sdr_gps_torch.io.rtcm3 import decode_1019, deframe
+    from stm32f4_sdr_gps_torch.runtime.checkpoint import (load_receiver,
+                                                          save_receiver)
+    from stm32f4_sdr_gps_torch.runtime.receiver import Receiver
+
+    t0 = time.perf_counter()
+    cfg = ReceiverConfig(prns=sc.prns, track_block_epochs=1000,
+                         enable_rtcm=True)
+    spe = cfg.plan.samples_per_epoch
+    x = sc.samples
+    cut = len(x) // spe // 2
+
+    def blocks(rx, pos, until=None):
+        while pos + spe <= len(x) and (until is None
+                                       or rx.epoch_cursor < until):
+            chunk = x[pos: pos + 1000 * spe]
+            rx.process_block(chunk)
+            pos += (len(chunk) // spe) * spe
+        return pos
+
+    def start(rx):
+        acq_e = cfg.acq.noncoherent_epochs
+        rx.acquire_all(x)
+        rx.start_tracking(x[acq_e * spe:], start_epoch=acq_e)
+        rx.epoch_cursor = acq_e
+        return acq_e * spe
+
+    def launches(label, *rxs):
+        """K1's launches since the last reset: one for each track-stage
+        call of the run's receivers, and no plain-version call."""
+        torch.cuda.synchronize()
+        counts = _counts()
+        calls = sum(r.profiler.stages["track"].calls for r in rxs)
+        if (counts["track_scan"] != calls or counts["track_scan_plain"]
+                or counts["epl"] or counts["epl_plain"]):
+            fail(f"[rtcm] {label}: counts {counts} for {calls} track-stage "
+                 "calls")
+        return counts["track_scan"]
+
+    n_k1 = {}
+    _reset_counts()
+    rx_a = Receiver(cfg)
+    blocks(rx_a, start(rx_a))
+    n_k1["carry"] = launches("carry", rx_a)
+    _reset_counts()
+    rx_c = Receiver(cfg)
+    pos_cut = blocks(rx_c, start(rx_c), until=cut)
+    rx_c._scan_carry_ref = None
+    blocks(rx_c, pos_cut)
+    n_k1["carry_dropped"] = launches("carry_dropped", rx_c)
+    _reset_counts()
+    rx_b0 = Receiver(cfg)
+    pos = blocks(rx_b0, start(rx_b0), until=cut)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = save_receiver(os.path.join(tmp, "ck"), rx_b0)
+        size = os.path.getsize(path)
+        rx_b = load_receiver(path)
+    if rx_b.device.type != "cuda" or not rx_b.track_state.doppler_hz.is_cuda:
+        fail("[rtcm] load_receiver(path) did not put the receiver on the card")
+    blocks(rx_b, pos)
+    n_k1["resumed"] = launches("resumed", rx_b0, rx_b)
+    for a, b in zip(rx_c.channels, rx_b.channels):
+        if (a.prn, a.bit_count, a.framer.history, a.subframe_time_ms,
+                a.eph.received_mask_proc) != (
+                b.prn, b.bit_count, b.framer.history, b.subframe_time_ms,
+                b.eph.received_mask_proc):
+            fail(f"[rtcm] PRN {a.prn}: resumed run differs from the run "
+                 "with the carry dropped at the cut")
+        for f in ("week", "iode", "iodc", "A", "e", "M0", "toes", "f0"):
+            if getattr(a.eph, f) != getattr(b.eph, f):
+                fail(f"[rtcm] PRN {a.prn}: ephemeris {f} differs")
+    if rx_b.rtcm_frames != rx_c.rtcm_frames:
+        fail("[rtcm] resumed run's RTCM frames differ")
+    sb, sc_ = (track_state_to_numpy(r.track_state) for r in (rx_b, rx_c))
+    for f, tol in (("code_phase_chips", 5e-3), ("doppler_hz", 0.5),
+                   ("snr_db", 0.1)):
+        if np.abs(sb[f] - sc_[f]).max() > tol:
+            fail(f"[rtcm] resumed {f} off by {np.abs(sb[f] - sc_[f]).max()}")
+    for f in sb:
+        if sb[f].dtype.kind in "ib" and not np.array_equal(sb[f], sc_[f]):
+            fail(f"[rtcm] resumed {f} differs")
+    kinds, eph_sats = [], set()
+    for f in rx_a.rtcm_frames:
+        p = deframe(f)
+        if p is None:
+            fail("[rtcm] a frame fails its CRC-24Q")
+        kind = (p[0] << 4) | (p[1] >> 4)
+        kinds.append(kind)
+        if kind == 1019:
+            d = decode_1019(p)
+            ch = {c.prn: c for c in rx_a.channels}[d["sat"]]
+            if (d["iode"], d["week"] % 1024) != (ch.eph.iode,
+                                                 ch.eph.week % 1024) or \
+                    abs(d["e"] - ch.eph.e) > 1e-9:
+                fail(f"[rtcm] 1019 of PRN {d['sat']} is not its ephemeris")
+            eph_sats.add(d["sat"])
+    if eph_sats != set(sc.prns) or 1075 not in kinds:
+        fail(f"[rtcm] 1019 for {sorted(eph_sats)}, kinds {set(kinds)}")
+    errs = {}
+    for label, rx in (("carry", rx_a), ("resumed", rx_b),
+                      ("carry_dropped", rx_c)):
+        if not rx.solutions:
+            fail(f"[rtcm] {label}: no fix")
+        errs[label] = float(np.linalg.norm(rx.solutions[-1].rr - sc.rr_true))
+    spread, tow_ms, n_obs = _msm_vs_fix(rx_a, rx_a.solutions[-1])
+    if spread > 100.0 or n_obs != len(sc.prns):
+        fail(f"[rtcm] MSM5 pseudoranges {spread:.1f} m from the fix")
+    print(f"[rtcm] {len(rx_a.rtcm_frames)} frames, all CRC-24Q valid: "
+          f"{kinds.count(1019)} x 1019, {kinds.count(1075)} x 1075; MSM5 "
+          f"at TOW {tow_ms} ms within {spread:.2f} m of the fix; checkpoint "
+          f"at epoch {cut} ({size} bytes) resumed on the card = the run "
+          f"with the carry dropped there; fixes {errs} m (resumed - carry "
+          f"{errs['resumed'] - errs['carry']:+.2f} m); K1 launches "
+          f"{n_k1}; phase 14 in {time.perf_counter() - t0:.1f} s")
+    return {"launches": n_k1, "fix_error_m": errs,
+            "frames": len(rx_a.rtcm_frames), "msm_vs_fix_m": spread}
+
+
+def dft_products():
+    """The matmul DFT's two products on the card at the acquisition's
+    shape ((64, 2046) against the (2046, 2046) twiddle table), held
+    against float64 products of the same inputs: "highest" within the
+    float32 bound |err| <= K * 2^-24 * (|a| @ |b|) elementwise and under
+    1 % of the error of the same product with TF32-rounded inputs (so no
+    TF32 pass); "default" within the same bound of the float64 product of
+    its bf16-rounded inputs, so its result is float32.  Returns the max
+    errors (and the TF32 one) relative to max(|a| @ |b|)."""
+    import numpy as np
+    import torch
+
+    from stm32f4_sdr_gps_torch.ops.correlate import (dft_matmul,
+                                                     dft_tables_device,
+                                                     tf32_matmul_on)
+
+    if tf32_matmul_on():
+        fail("[dft] TF32 is on for CUDA matmuls")
+    k = 2046
+    a = torch.as_tensor(np.random.default_rng(15).standard_normal(
+        (64, k)).astype(np.float32), device="cuda")
+    wc, _ = dft_tables_device(k)
+
+    def tf32(t):
+        bits = t.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    def bf16(t):
+        return t.to(torch.bfloat16).to(torch.float32)
+
+    def f64(x, y):
+        return x.double() @ y.double()
+
+    errs, scale = {}, None
+    for name, (x, y) in (("highest", (a, wc)),
+                         ("default", (bf16(a), bf16(wc)))):
+        got = dft_matmul(a, wc, name)
+        if got.dtype != torch.float32:
+            fail(f"[dft] {name} product returned {got.dtype}")
+        err = (got.double() - f64(x, y)).abs()
+        bound = f64(x.abs(), y.abs())
+        if (err > k * 2.0 ** -24 * bound).any():
+            fail(f"[dft] {name} product past the float32 bound: max err "
+                 f"{err.max().item():.3g}")
+        errs[name] = err.max().item()
+        scale = scale or bound.max().item()
+    errs["tf32_inputs"] = (f64(tf32(a), tf32(wc)) - f64(a, wc)
+                           ).abs().max().item()
+    if errs["highest"] > 0.01 * errs["tf32_inputs"]:
+        fail(f"[dft] highest product err {errs['highest']:.3g} is near a "
+             f"TF32 product's {errs['tf32_inputs']:.3g}")
+    rec = {k_: v / scale for k_, v in errs.items()}
+    print(f"[dft] on the card, max |product - float64| / max(|a|@|b|): "
+          f"{rec}")
+    return rec
+
+
+def acquisition_32(sc):
+    """Phase 15: acquisition of PRNs 1-32 on phase 4's capture on the
+    card.  The FFT cube and the matmul DFT at both precisions must detect
+    the four planted PRNs and nothing else, in the same Doppler bins.  The
+    epoch vote must equal its plain version on CPU copies (detections,
+    bins, lag cells) and agree with the cube on every PRN it detects: it
+    is the firmware's histogram detector, and a satellite whose per-epoch
+    votes split between two Doppler bins (PRN 7 here, planted at
+    -1269.6 Hz, 20 Hz off the midpoint of its two bins) is no detection
+    for it, in the JAX package too.  Each one's CUDA-event time (median
+    of 5 calls after a warm-up; the DFT products are torch.mm calls, not
+    kernels of this port)."""
+    from stm32f4_sdr_gps_torch.acquire.engine import (acquire,
+                                                      acquire_epoch_vote)
+    from stm32f4_sdr_gps_torch.config import AcqConfig, BASEBAND_PLAN
+
+    x = sc.samples
+    prns = list(range(1, 33))
+    cfgs = {"fft": AcqConfig(),
+            "dft_highest": AcqConfig(use_matmul_dft=True,
+                                     dft_precision="highest"),
+            "dft_default": AcqConfig(use_matmul_dft=True,
+                                     dft_precision="default")}
+    runs = {k: (lambda c=c: acquire(x, prns, BASEBAND_PLAN, c))
+            for k, c in cfgs.items()}
+    runs["epoch_vote"] = lambda: acquire_epoch_vote(x, prns, BASEBAND_PLAN,
+                                                    AcqConfig())
+    step = AcqConfig().doppler_step_hz
+    res, times = {}, {}
+    for k, fn in runs.items():
+        res[k] = fn()
+        times[k] = _median_ms(fn, 5, 1)
+
+    def found(r):
+        # the argmax bin: the interpolated Doppler is within half a bin
+        return {a.prn: round(a.doppler_hz / step) for a in r if a.detected}
+
+    want = found(res["fft"])
+    if sorted(want) != sorted(sc.prns):
+        fail(f"[acq32] FFT cube detections {sorted(want)}, planted "
+             f"{sorted(sc.prns)}")
+    for k in ("dft_highest", "dft_default"):
+        if found(res[k]) != want:
+            fail(f"[acq32] {k}: detections and bins {found(res[k])}, FFT "
+                 f"cube {want}")
+    vote = found(res["epoch_vote"])
+    plain = acquire_epoch_vote(x, prns, BASEBAND_PLAN, AcqConfig(),
+                               device="cpu")
+    if [(a.prn, a.detected, a.doppler_hz, a.code_phase_chips)
+            for a in plain] != [(a.prn, a.detected, a.doppler_hz,
+                                 a.code_phase_chips)
+                                for a in res["epoch_vote"]]:
+        fail("[acq32] epoch vote on the card differs from its plain version")
+    if not vote or any(want.get(p) != b for p, b in vote.items()):
+        fail(f"[acq32] epoch vote {vote} against the FFT cube {want}")
+    ratio = {k: {a.prn: round(a.peak_ratio, 3) for a in r if a.detected}
+             for k, r in res.items()}
+    print(f"[acq32] 32 PRNs x {len(AcqConfig().doppler_bins_hz)} bins: FFT "
+          f"cube and matmul DFT (both precisions) detect {sorted(want)} in "
+          f"bins {want}; epoch vote (= its plain version) {vote}, missing "
+          f"{sorted(set(want) - set(vote))}; ms {times}; peak ratios "
+          f"{ratio}")
+    return {**times, "epoch_vote_missing": sorted(set(want) - set(vote)),
+            "dft_product_rel_err": dft_products()}
+
+
+def wire_format():
+    """Phase 16: a REFERENCE_PLAN 1-bit capture of PRN 19 (1.2 s, 20 ms
+    bits), packed into SPI words, conditioned on the card
+    (reference_to_baseband_device) against the host conditioner within
+    1e-5; then ``python -m stm32f4_sdr_gps_torch run <file> --format
+    bits16`` as a subprocess on the card must exit 0 and track PRN 19."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from stm32f4_sdr_gps_torch.config import REFERENCE_PLAN
+    from stm32f4_sdr_gps_torch.signal.capture import (
+        pack_bits_lsb16, reference_to_baseband, reference_to_baseband_device,
+        unpack_bits_lsb16)
+    from stm32f4_sdr_gps_torch.signal.simulator import SimSat, \
+        simulate_capture
+
+    t0 = time.perf_counter()
+    sat = SimSat(prn=19, doppler_hz=2500.0, cn0_dbhz=50.0, delay_ms=4.321)
+    x, _ = simulate_capture([sat], num_epochs=1200, plan=REFERENCE_PLAN,
+                            seed=17)
+    words = pack_bits_lsb16(x)
+    host = reference_to_baseband(unpack_bits_lsb16(words))
+    dev = reference_to_baseband_device(words)
+    if not dev.is_cuda:
+        fail("[wire] reference_to_baseband_device did not run on the card")
+    err = float(np.abs(dev.cpu().numpy() - host).max())
+    if dev.shape[0] != len(host) or err > 1e-5:
+        fail(f"[wire] card conditioner vs host: max |diff| {err}")
+    wt = torch.as_tensor(words.astype(np.int32), device="cuda")
+    ms = _median_ms(lambda: reference_to_baseband_device(wt), 5, 1)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cap.bin")
+        words.tofile(path)
+        t1 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "stm32f4_sdr_gps_torch", "run", path,
+             "--format", "bits16"], cwd=HERE, capture_output=True,
+            text=True, timeout=600, env={**os.environ, "PYTHONPATH": HERE})
+        cli_s = time.perf_counter() - t1
+    row = [ln for ln in res.stdout.splitlines() if ln.split()[:1] == ["19"]]
+    if res.returncode != 0 or not row or "TRACKING" not in row[0]:
+        fail(f"[wire] CLI exit {res.returncode}: {res.stdout[-2000:]}"
+             f"{res.stderr[-2000:]}")
+    print(f"[wire] {len(words)} words -> {dev.shape[0]} baseband samples on "
+          f"the card, max |card - host| {err:.2e}, {ms:.3f} ms a call; CLI "
+          f"run --format bits16 exit 0 in {cli_s:.1f} s: {row[0].strip()}; "
+          f"phase 16 in {time.perf_counter() - t0:.1f} s")
+    return {"card_vs_host_max_abs": err, "ms": ms, "cli_s": cli_s}
+
+
 def main():
     sys.path.insert(0, HERE)
     import stm32f4_sdr_gps_torch
@@ -1282,17 +1847,13 @@ def main():
     if os.path.dirname(pkg_dir) != HERE:
         fail(f"stm32f4_sdr_gps_torch imported from {pkg_dir}, not from this "
              "checkout")
+    from stm32f4_sdr_gps_torch.config import (COHERENT_TRACK, DEEP_ACQ,
+                                              DEEP_COHERENT_TRACK, ULTRA_ACQ)
+
     name, smi = card()
     ptxas = build()
     k1_err, k1_times, scenario, k1_modes = kernel_vs_plain()
-
-    from stm32f4_sdr_gps_torch.signal.scenarios import fix_scenario
-
-    t0 = time.perf_counter()
-    sc = fix_scenario(num_epochs=29_000)
-    print(f"[main] simulated {len(sc.samples) / 2.046e6:.1f} s of "
-          f"{len(sc.prns)}-satellite baseband ({sc.samples.nbytes / 1e6:.0f}"
-          f" MB) in {time.perf_counter() - t0:.1f} s")
+    sc = _capture("main")
     k1_launches, fix_err, wall, track_ms = main_path(sc)
     cbv_launches, cbv_err, cbv_wall, cbv_track_ms = main_path(
         sc, "main-cbv", coherent_bit_vote=True)
@@ -1302,6 +1863,32 @@ def main():
     p5 = corr_bank()
     forest_res = forest()
     roll_res, roll_errs, roll_launches, roll_sass_rec = roll_probes()
+    phase_s = {}
+    sc_weak = _capture("weak32")
+    t0 = time.perf_counter()
+    weak32 = weak_chain(sc_weak, DEEP_ACQ, COHERENT_TRACK, "weak32",
+                        "coherent_pll")
+    phase_s[11] = time.perf_counter() - t0
+    sc_weak = _capture("weak29")
+    t0 = time.perf_counter()
+    weak29 = weak_chain(sc_weak, ULTRA_ACQ, DEEP_COHERENT_TRACK, "weak29",
+                        "coherent_pll_ext5")
+    del sc_weak
+    phase_s[12] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reacq = reacquire()
+    phase_s[13] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rtcm = rtcm_checkpoint(sc)
+    phase_s[14] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    acq_ms = acquisition_32(sc)
+    phase_s[15] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wire = wire_format()
+    phase_s[16] = time.perf_counter() - t0
+    print(f"[phases] seconds of phases 11-16: "
+          f"{ {k: round(v, 1) for k, v in phase_s.items()} }")
     src = "stm32f4_sdr_gps_torch/csrc/"
     k2_b4, k2_b32 = k2_bound(4), k2_bound(32)
 
@@ -1348,6 +1935,12 @@ def main():
                                    "fix_error_m": cbv_err,
                                    "wall_s": cbv_wall,
                                    "track_ms_per_block": cbv_track_ms},
+        "weak_chain_32dbhz": weak32,
+        "weak_chain_29dbhz": weak29,
+        "reacquire": reacq,
+        "rtcm_checkpoint": rtcm,
+        "acquisition_32prn_ms": acq_ms,
+        "wire_format": wire,
     }, {
         "name": "epl",
         "route": "cuda",

@@ -1,17 +1,17 @@
 """FFT-parallel acquisition engine (torch port of the JAX package's
-acquire/engine.py, FFT path).
+acquire/engine.py).
 
 Replaces the firmware's serial search (``acquisition.c``: frequency scan
 29 bins x 10 epochs with sort-chain voting, then three shrinking
 code-phase searches) with one tensor program: the whole
 (PRN x Doppler x code-lag) cube is evaluated by FFT circular correlation
-with non-coherent accumulation over epochs, then peak / second-peak
-detection runs on the device and only (P,)-vectors come back.
-
-Not ported yet (ROADMAP Queue 1): the matmul-DFT path
-(``AcqConfig.use_matmul_dft``), bit-edge hypotheses
-(``AcqConfig.edge_hypotheses > 1``), the epoch-voting detector and the
-per-channel host ``refine_doppler``.
+(or matmul DFTs, ``AcqConfig.use_matmul_dft``) with coherent and
+non-coherent accumulation over epochs and, for long coherent spans,
+max-combined bit-edge hypotheses; peak / second-peak detection runs on
+the device and only (P,)-vectors come back.  An epoch-voting detector
+compatible with the firmware's histogram acceptance thresholds
+(acquisition.c:249-274) and the per-channel host fine-Doppler search are
+also here.
 """
 
 from __future__ import annotations
@@ -24,9 +24,14 @@ import torch
 from ..config import AcqConfig, SignalPlan, BASEBAND_PLAN, FREQ_L1_HZ
 from ..ops.correlate import (
     code_fft_conj,
+    code_spectrum_conj_matmul,
+    dft_tables_device,
     fft_circular_correlate,
     lag_to_code_phase,
+    matmul_circular_correlate,
     noncoherent_power,
+    pack_code_bits,
+    unpack_code_table,
 )
 from ..ops.wipeoff import doppler_rotations
 from ..utils.device import card_or_cpu
@@ -50,6 +55,8 @@ def acquisition_power(
     cfc: torch.Tensor,          # (P, S) conj code FFTs
     rot: torch.Tensor,          # (D, S) Doppler rotations
     coherent: int = 1,
+    dft: tuple | None = None,   # (wc, ws) from ops.correlate.dft_tables
+    dft_precision: str = "highest",
 ) -> torch.Tensor:
     """Non-coherently accumulated correlation power, shape (P, D, S).
 
@@ -77,10 +84,46 @@ def acquisition_power(
     acc = torch.zeros((p, d, s), dtype=torch.float32, device=epochs.device)
     for block in blocks:
         xd = block[:, None, :] * rot[None, :, :]          # (co, D, S)
-        corr = fft_circular_correlate(xd, cfc)             # (co, D, P, S)
+        if dft is not None:                                # matmul DFT
+            corr = matmul_circular_correlate(xd, cfc, *dft,
+                                             precision=dft_precision)
+        else:
+            corr = fft_circular_correlate(xd, cfc)         # (co, D, P, S)
         csum = (corr * phasor[:, :, None, None]).sum(0)
         acc = acc + noncoherent_power(csum).permute(1, 0, 2)
     return acc
+
+
+def acquisition_power_hypotheses(
+    epochs: torch.Tensor,       # (E, S) complex epochs
+    cfc: torch.Tensor,          # (P, S) conj code FFTs
+    rot: torch.Tensor,          # (D, S) Doppler rotations
+    coherent: int,
+    n_hyp: int,
+    dft: tuple | None = None,
+    dft_precision: str = "highest",
+) -> torch.Tensor:
+    """All bit-edge hypotheses in one call, shape (P, D, S).
+
+    The coherent block grid is tried at ``n_hyp`` offsets across one
+    block and the per-block-normalized powers are max-combined on the
+    device.  Hypotheses are steps of the call, not a batch axis, so peak
+    memory stays at one (coherent, D, P, S) correlation cube, as for a
+    single hypothesis.
+    """
+    e = epochs.shape[0]
+    power = None
+    for j in range(n_hyp):
+        o = (j * coherent) // n_hyp
+        n_blocks = (e - o) // coherent
+        if n_blocks < 1:
+            continue
+        pw = acquisition_power(
+            epochs[o: o + n_blocks * coherent], cfc, rot, coherent=coherent,
+            dft=dft, dft_precision=dft_precision,
+        ) / float(n_blocks)
+        power = pw if power is None else torch.maximum(power, pw)
+    return power
 
 
 def _parabolic_offset(ym1, y0, yp1):
@@ -143,6 +186,43 @@ def analyze_power_device(
     return peak, lag, doppler, second, mean
 
 
+def _analyze_power_host(power: np.ndarray, doppler_bins_hz: np.ndarray,
+                        excl: int):
+    """Pure-numpy mirror of analyze_power_device (same argmax tie-break,
+    parabolic interpolation, wraparound exclusion)."""
+    p_cnt, d_cnt, s = power.shape
+    pidx = np.arange(p_cnt)
+    flat = power.reshape(p_cnt, -1).argmax(axis=1)
+    di = flat // s
+    si = flat % s
+    rows = power[pidx, di]
+    peak = rows[pidx, si]
+
+    def parab(ym1, y0, yp1):
+        den = ym1 - 2.0 * y0 + yp1
+        with np.errstate(divide="ignore", invalid="ignore"):
+            out = np.where(np.abs(den) > 1e-12, 0.5 * (ym1 - yp1) / den, 0.0)
+        return out
+
+    frac = parab(rows[pidx, (si - 1) % s], peak, rows[pidx, (si + 1) % s])
+    lag = si.astype(np.float32) + np.clip(frac, -0.5, 0.5)
+    cols = np.take_along_axis(power, si[:, None, None], axis=2)[..., 0]
+    dm1 = cols[pidx, np.maximum(di - 1, 0)]
+    dp1 = cols[pidx, np.minimum(di + 1, d_cnt - 1)]
+    interior = (di > 0) & (di < d_cnt - 1)
+    dfrac = np.where(interior, np.clip(parab(dm1, peak, dp1), -0.5, 0.5),
+                     0.0)
+    step = (doppler_bins_hz[1] - doppler_bins_hz[0]) if d_cnt > 1 else 0.0
+    doppler = doppler_bins_hz[di] + dfrac * step
+    lag_idx = np.arange(s)
+    dist = np.minimum((lag_idx[None, :] - si[:, None]) % s,
+                      (si[:, None] - lag_idx[None, :]) % s)
+    masked = np.where(dist[:, None, :] > excl, power, 0.0)
+    second = masked.max(axis=(1, 2))
+    mean = power.mean(axis=(1, 2))
+    return peak, lag, doppler, second, mean
+
+
 def _results_from_vectors(vecs, prns, plan: SignalPlan,
                           cfg: AcqConfig) -> list:
     """(peak, lag, doppler, second, mean) host vectors -> AcqResults."""
@@ -178,15 +258,48 @@ def _hint_mask(prns, bins, doppler_hints_hz, cfg: AcqConfig):
     return keep
 
 
-def _check_supported(cfg: AcqConfig) -> None:
-    if cfg.use_matmul_dft:
-        raise NotImplementedError(
-            "AcqConfig.use_matmul_dft is not ported yet: ROADMAP Queue 1, "
-            "'the matmul-DFT path'")
-    if cfg.edge_hypotheses > 1:
-        raise NotImplementedError(
-            "AcqConfig.edge_hypotheses > 1 is not ported yet: ROADMAP "
-            "Queue 1, 'acquisition_power_hypotheses'")
+def analyze_power(
+    power,                      # (P, D, S) tensor or numpy array
+    prns,
+    doppler_bins_hz: np.ndarray,
+    plan: SignalPlan,
+    cfg: AcqConfig,
+) -> list:
+    """Peak detection + sub-bin interpolation -> AcqResults.
+
+    A tensor cube is analyzed on its own device (analyze_power_device)
+    and only the per-PRN vectors come back; a numpy cube is analyzed on
+    the host (_analyze_power_host)."""
+    excl = exclusion_lags(cfg, plan)
+    bins_np = np.asarray(doppler_bins_hz, dtype=np.float32)
+    if isinstance(power, np.ndarray):
+        vecs = _analyze_power_host(power, bins_np, excl)
+    else:
+        bins = torch.as_tensor(bins_np, device=power.device)
+        vecs = [v.cpu().numpy()
+                for v in analyze_power_device(power, bins, excl)]
+    return _results_from_vectors(vecs, prns, plan, cfg)
+
+
+def apply_doppler_hints(power, prns, bins, doppler_hints_hz, cfg):
+    """Confine hinted PRNs' power cubes to hint +/- one Doppler bin (the
+    firmware's user-supplied hints, main.c:59-73, acquisition.c:72-79).
+    The (P, D) keep-mask is built on the host and applied as one multiply
+    on the cube's side, so a device cube stays on the device."""
+    keep = _hint_mask(prns, bins, doppler_hints_hz, cfg)
+    if keep is None:
+        return power
+    if isinstance(power, np.ndarray):
+        return power * keep[:, :, None]
+    return power * torch.as_tensor(keep, device=power.device)[:, :, None]
+
+
+def epochs_on(samples: np.ndarray, e: int, s: int, device) -> torch.Tensor:
+    """The first ``e`` epochs of ``samples`` as an (e, S) complex64 tensor
+    on ``device``: one host-to-device copy."""
+    return torch.as_tensor(
+        np.ascontiguousarray(samples[: e * s].reshape(e, s),
+                             dtype=np.complex64), device=device)
 
 
 def acquire(
@@ -208,52 +321,97 @@ def acquire(
     hint +/- one bin (main.c:59-73, acquisition.c:72-79).
     """
     device = card_or_cpu(device, "acquire")
-    _check_supported(cfg)
     s = plan.samples_per_epoch
     e = num_epochs or cfg.noncoherent_epochs
     if len(samples) < e * s:
         raise ValueError(f"need at least {e} epochs of samples")
-    epochs = torch.as_tensor(
-        np.ascontiguousarray(samples[: e * s].reshape(e, s),
-                             dtype=np.complex64), device=device)
+    epochs = epochs_on(samples, e, s, device)
     bins = np.asarray(cfg.doppler_bins_hz, dtype=np.float32)
     bins_d = torch.as_tensor(bins, device=device)
     rot = doppler_rotations(bins_d, s, plan.sample_rate_hz)
-    cfc = code_fft_conj(prns, plan, device=device)
+    dft = None
+    if cfg.use_matmul_dft:
+        # twiddle tables made on the device, the codes shipped bit-packed
+        # and their spectrum taken as a product
+        dft = dft_tables_device(s, device=device)
+        packed = torch.as_tensor(pack_code_bits(prns, plan), device=device)
+        cfc = code_spectrum_conj_matmul(unpack_code_table(packed, s), *dft)
+    else:
+        cfc = code_fft_conj(prns, plan, device=device)
     keep = _hint_mask(prns, bins, doppler_hints_hz, cfg)
     keep_d = None if keep is None else torch.as_tensor(keep, device=device)
-    out = _acquire_fused(epochs, cfc, rot, bins_d, keep_d,
+    out = _acquire_fused(epochs, cfc, rot, bins_d, keep_d, dft,
                          coherent=cfg.coherent_epochs,
+                         n_hyp=max(1, int(cfg.edge_hypotheses)),
+                         dft_precision=cfg.dft_precision,
                          excl=exclusion_lags(cfg, plan))
     return _results_from_vectors(
         [v.cpu().numpy() for v in out], prns, plan, cfg)
 
 
-def _acquire_fused(epochs, cfc, rot, bins, keep, coherent: int, excl: int):
-    """Cube -> hint mask -> peak analysis, all on the epochs' device;
-    returns only (P,) vectors."""
-    power = acquisition_power(epochs, cfc, rot, coherent=coherent)
+def _acquire_fused(epochs, cfc, rot, bins, keep, dft, coherent: int,
+                   n_hyp: int, dft_precision: str, excl: int):
+    """Cube -> hypothesis max-combine -> hint mask -> peak analysis, all
+    on the epochs' device; returns only (P,) vectors.  Bit-edge
+    hypotheses shift the coherent block grid and max-combine
+    per-block-normalized powers, so one hypothesis has every block free
+    of a nav-bit sign flip."""
+    if n_hyp == 1:
+        power = acquisition_power(epochs, cfc, rot, coherent=coherent,
+                                  dft=dft, dft_precision=dft_precision)
+    else:
+        power = acquisition_power_hypotheses(
+            epochs, cfc, rot, coherent=coherent, n_hyp=n_hyp, dft=dft,
+            dft_precision=dft_precision)
     if keep is not None:
         power = power * keep[:, :, None]
     return analyze_power_device(power, bins, excl)
 
 
-def refine_doppler_device(
+def refine_doppler(
+    samples: np.ndarray,
+    prn: int,
+    code_phase_chips: float,
+    coarse_doppler_hz: float,
+    plan: SignalPlan = BASEBAND_PLAN,
+    num_epochs: int = 32,
+    device="cuda",
+) -> float:
+    """Fine Doppler of one channel: :func:`refine_doppler_device`'s search
+    on the first ``num_epochs`` epochs of ``samples``, on ``device`` (the
+    card unless the caller asks for the CPU; raises without a card), with
+    the found bin's frequency added to the coarse Doppler in float64 on
+    the host.  The coarse grid leaves tens of Hz of error; this resolves
+    the residual to ~1000/num_epochs Hz (zero-padded 8x)."""
+    from ..signal.ca_code import ca_table_bipolar
+
+    device = card_or_cpu(device, "refine_doppler")
+    s = plan.samples_per_epoch
+    e = min(num_epochs, len(samples) // s)
+    k = int(_squared_prompt_bins(
+        epochs_on(samples, e, s, device),
+        torch.as_tensor(ca_table_bipolar([prn]), device=device),
+        torch.tensor([code_phase_chips], dtype=torch.float32, device=device),
+        torch.tensor([coarse_doppler_hz], dtype=torch.float32,
+                     device=device), plan)[0])
+    freqs = np.fft.fftfreq(8 * e, d=s / plan.sample_rate_hz)
+    return float(coarse_doppler_hz + freqs[k] / 2.0)
+
+
+def _squared_prompt_bins(
     epochs: torch.Tensor,            # (E, S) complex epochs, on the device
     code_table: torch.Tensor,        # (C, 1023) bipolar codes
     code_phase_chips: torch.Tensor,  # (C,) code phase at epochs[0]
     doppler_hz: torch.Tensor,        # (C,) coarse Doppler
-    plan: SignalPlan = BASEBAND_PLAN,
+    plan: SignalPlan,
 ) -> torch.Tensor:
-    """Fine Doppler for every channel at once, on the device.
+    """(C,) argmax bin of each channel's squared-prompt spectrum, over
+    8 * E bins.
 
     Per epoch, the prompt correlation at the acquired code phase (code
     rate carrier-aided so the replica does not walk off the signal); then
     the FFT of the squared prompts (squaring strips the BPSK nav bits, so
-    the tone sits at 2*df), zero-padded 8x, and its argmax.  The coarse
-    grid leaves tens of Hz of error; this resolves it to ~1 Hz.  Only the
-    (C,) refined-Doppler vector need come back.
-    """
+    the tone sits at 2*df), zero-padded 8x, and its argmax."""
     from ..ops.replica import sample_replicas
     from ..ops.wipeoff import carrier_wipeoff
 
@@ -273,9 +431,90 @@ def refine_doppler_device(
         prompts.append((y * reps).sum(-1))          # (C,)
         cp = torch.remainder(cp + chips_per_epoch, 1023.0)
     prompts = torch.stack(prompts)                  # (E, C)
-    pad = 8 * e
-    spec = torch.abs(torch.fft.fft(prompts * prompts, n=pad, dim=0))
-    freqs = torch.fft.fftfreq(pad, d=s / plan.sample_rate_hz,
+    spec = torch.abs(torch.fft.fft(prompts * prompts, n=8 * e, dim=0))
+    return torch.argmax(spec, dim=0)
+
+
+def refine_doppler_device(
+    epochs: torch.Tensor,            # (E, S) complex epochs, on the device
+    code_table: torch.Tensor,        # (C, 1023) bipolar codes
+    code_phase_chips: torch.Tensor,  # (C,) code phase at epochs[0]
+    doppler_hz: torch.Tensor,        # (C,) coarse Doppler
+    plan: SignalPlan = BASEBAND_PLAN,
+) -> torch.Tensor:
+    """Fine Doppler for every channel at once, on the device: the coarse
+    Doppler plus half the frequency of the squared-prompt spectrum's peak
+    (:func:`_squared_prompt_bins`).  The coarse grid leaves tens of Hz of
+    error; this resolves it to ~1 Hz.  Only the (C,) refined-Doppler
+    vector need come back."""
+    e, s = epochs.shape
+    k = _squared_prompt_bins(epochs, code_table, code_phase_chips,
+                             doppler_hz, plan)
+    freqs = torch.fft.fftfreq(8 * e, d=s / plan.sample_rate_hz,
                               device=epochs.device)
-    k = torch.argmax(spec, dim=0)
-    return doppler_hz + freqs[k].to(torch.float32) / 2.0
+    return doppler_hz.to(torch.float32) + freqs[k].to(torch.float32) / 2.0
+
+
+def acquire_epoch_vote(
+    samples: np.ndarray,
+    prns,
+    plan: SignalPlan = BASEBAND_PLAN,
+    cfg: AcqConfig = AcqConfig(),
+    num_epochs: int | None = None,
+    device="cuda",
+) -> list:
+    """Firmware-compatible epoch-voting detector, on ``device``: the card
+    unless the caller asks for the CPU; raises without a card.
+
+    Per epoch, the argmax lag of each (PRN, Doppler) row of the FFT cube
+    votes into a histogram over (Doppler bin, half-chip lag cell); a PRN
+    is accepted when max/avg over the non-zero cells exceeds
+    ``cfg.hist_ratio``, the acceptance rule of acquisition.c:249-274.
+    Only the (E, P, D) argmax / max planes come back to the host.
+    """
+    device = card_or_cpu(device, "acquire_epoch_vote")
+    s = plan.samples_per_epoch
+    e = num_epochs or cfg.noncoherent_epochs
+    epochs = epochs_on(samples, e, s, device)
+    cfc = code_fft_conj(prns, plan, device=device)
+    bins = np.asarray(cfg.doppler_bins_hz, dtype=np.float32)
+    rot = doppler_rotations(torch.as_tensor(bins, device=device), s,
+                            plan.sample_rate_hz)
+    arg_rows, max_rows = [], []
+    for x in epochs:
+        pw = noncoherent_power(fft_circular_correlate(x[None, :] * rot, cfc))
+        mx, am = pw.max(dim=2)                          # (D, P)
+        arg_rows.append(am.T)
+        max_rows.append(mx.T)
+    argmaxes = torch.stack(arg_rows).cpu().numpy()      # (E, P, D)
+    maxes = torch.stack(max_rows).cpu().numpy()         # (E, P, D)
+
+    results = []
+    hist_step = max(1, int(round(plan.samples_per_chip * 0.5)))  # half chip
+    for pi, prn in enumerate(prns):
+        votes: dict = {}
+        for ei in range(argmaxes.shape[0]):
+            di = int(np.argmax(maxes[ei, pi]))
+            cell = int(argmaxes[ei, pi, di]) // hist_step
+            votes[(di, cell)] = votes.get((di, cell), 0) + 1
+        (best_key, best_votes) = max(votes.items(), key=lambda kv: kv[1])
+        nz = list(votes.values())
+        avg = float(np.mean(nz))
+        ratio = best_votes / max(avg, 1e-9)
+        detected = (ratio > cfg.hist_ratio) or (
+            len(nz) == 1 and best_votes > cfg.freq_hist_min_votes
+        )
+        di, cell = best_key
+        lag = cell * hist_step
+        results.append(
+            AcqResult(
+                prn=int(prn),
+                detected=bool(detected),
+                doppler_hz=float(bins[di]),
+                code_phase_chips=float(lag_to_code_phase(lag, plan) % 1023.0),
+                peak_power=float(maxes[:, pi, di].mean()),
+                peak_ratio=float(ratio),
+                peak_to_mean=float(ratio),
+            )
+        )
+    return results

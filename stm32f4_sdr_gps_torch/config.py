@@ -47,9 +47,8 @@ class SignalPlan:
 
     The default is *complex baseband* IQ at 2.046 MHz (2 samples/chip).
     The reference firmware's plan (1-bit real samples at 16.368 MHz with
-    a 4.092 MHz IF, config.h:23-26) is expressed with the same dataclass;
-    its conversion to the baseband plan (``signal/capture.py`` in the JAX
-    package) is not ported yet.
+    a 4.092 MHz IF, config.h:23-26) is expressed with the same dataclass
+    and converted to the baseband plan by :mod:`.signal.capture`.
     """
 
     sample_rate_hz: float = 2.046e6
@@ -97,7 +96,8 @@ class AcqConfig:
 
     The grid matches the firmware (config.h:41-44): +/-7 kHz in 500 Hz
     steps.  The detector is peak/second-peak on FFT circular correlation
-    instead of serial histogram voting.
+    instead of serial histogram voting; an epoch-voting mode compatible
+    with the firmware's histogram logic also exists (acquisition.c:196-416).
     """
 
     doppler_span_hz: float = 7000.0
@@ -117,11 +117,14 @@ class AcqConfig:
     freq_hist_min_votes: int = 3      # acquisition.c:382
     freq_hist_ratio: float = 1.7      # acquisition.c:402
     timeout_ms: int = 120_000         # acquisition.c:13
-    # Matmul-DFT evaluation of the acquisition cube and its precision
-    # (JAX package: ops.correlate.matmul_circular_correlate).  Not ported
-    # yet: acquire raises NotImplementedError when use_matmul_dft is set
-    # (ROADMAP Queue 1).
+    # Evaluate the acquisition cube with matmul DFTs instead of FFTs
+    # (ops.correlate.matmul_circular_correlate): same outputs to ~1e-5
+    # relative at "highest".
     use_matmul_dft: bool = False
+    # Precision of the DFT products on a CUDA device: "highest" = float32
+    # products with TF32 off; "default" = bfloat16 inputs with float32
+    # accumulation and a float32 result (the one-pass bf16 product).  The
+    # CPU computes float32 either way.
     dft_precision: str = "default"
 
     @property
@@ -169,11 +172,12 @@ class TrackConfig:
     bit_sync_up: int = 8              # sync declared above this count
     bit_sync_down: int = 3            # sync lost below this count
     bit_sync_max: int = 10
-    # Weak-signal coherent modes of the JAX package (grid-locked coherent
-    # bit vote, 20 ms coherent PLL, K-bit data-wipeoff PLL; documented in
-    # its config.py).  Both tracking scans and the tracking-scan kernel run
-    # all of them; the Receiver refuses coherent_pll, whose fine-Doppler
-    # handoff and aided bit sync are not ported yet (ROADMAP Queue 1).
+    # Weak-signal coherent modes (documented in the JAX package's
+    # config.py): grid-locked coherent bit vote, the 20 ms coherent PLL
+    # (closed once per bit on the whole-bit prompt sums; the Receiver
+    # engages its bit grid by the aided histogram search,
+    # track.aided_sync) and the K-bit data-wipeoff PLL (pll_ext_bits).
+    # Both tracking scans and the tracking-scan kernel run all of them.
     coherent_bit_vote: bool = False
     coherent_pll: bool = False
     pll_bit_c1: float = 5.4
@@ -219,6 +223,73 @@ def resolve_in_kernel_scan(cfg: TrackConfig, device) -> bool:
     return torch.device(device).type == "cuda"
 
 
+#: Deep-acquisition preset: 4 ms coherent spans with a Doppler grid fine
+#: enough for the coherent bandwidth (bin <= 1/(2*T_coh)), 60 epochs of
+#: integration — detects ~3 dB below the firmware-grid default
+#: (~31 dBHz vs ~34 dBHz).  Coherent spans assume bit edges are unknown,
+#: so spans longer than ~5 epochs risk straddling a nav-bit flip.
+DEEP_ACQ = AcqConfig(
+    noncoherent_epochs=60,
+    coherent_epochs=4,
+    doppler_step_hz=100.0,
+)
+
+#: Full-bit coherent acquisition: 20 ms coherent spans with 10 bit-edge
+#: hypotheses (one aligns the blocks to the unknown bit grid) and a
+#: matched 25 Hz Doppler grid.  ~10x the compute of DEEP_ACQ per
+#: hypothesis x10 hypotheses; detects a few dB deeper — pair with
+#: COHERENT_TRACK for the lowest-C/N0 cold starts.
+ULTRA_ACQ = AcqConfig(
+    noncoherent_epochs=120,
+    coherent_epochs=20,
+    doppler_step_hz=25.0,
+    edge_hypotheses=10,
+)
+
+#: Narrow-bandwidth loop preset for weak signals: holds lock down to
+#: ~29 dBHz (the firmware-gain default degrades below ~32 dBHz).  The
+#: longer time constants assume low platform dynamics.
+WEAK_SIGNAL_TRACK = TrackConfig(
+    pll_scale=1.0 / 16,
+    fll_scale=1.0 / 16,
+    dll_c1=0.25,
+    dll_c2=75.0,
+    snr_window_epochs=1000,
+)
+
+#: 20 ms coherent tracking: once bit sync is achieved the Costas loop
+#: closes on whole-bit coherent sums (TrackConfig.coherent_pll).  Bit
+#: sync below ~36 dBHz comes from the aided histogram search
+#: (track.aided_sync, engaged by the Receiver).  The longer pre-track
+#: window keeps the code-phase handoff reliable at 30 dBHz.  The gentle
+#: per-epoch scales only matter before sync (the per-epoch loop freezes
+#: once the coherent loop engages): they slow the Costas random walk
+#: away from the fine-Doppler anchor at low C/N0, so the first aided-sync
+#: window is clean.  bit_sync_up above the counter clamp (10) disables
+#: the run-time sync declaration entirely: at the C/N0 this preset
+#: targets the flip counters declare sync on noise excursions with
+#: grids many epochs off, while the aided histogram search finds the
+#: true boundary within one window.
+COHERENT_TRACK = TrackConfig(
+    coherent_pll=True,
+    pre_track_epochs=100,
+    pll_scale=1.0 / 16,
+    fll_scale=1.0 / 16,
+    bit_sync_up=1_000_000,
+)
+
+#: 100 ms data-wipeoff coherent tracking: COHERENT_TRACK plus the
+#: extended multi-bit PLL (pll_ext_bits = 5 decided bits per Costas
+#: update) and a narrower DLL.  The 0.1 s coherent spans assume low
+#: platform dynamics and TCXO drift << 1 ppm/s.
+DEEP_COHERENT_TRACK = dataclasses.replace(
+    COHERENT_TRACK,
+    pll_ext_bits=5,
+    dll_c1=0.25,
+    dll_c2=75.0,
+)
+
+
 @dataclass(frozen=True)
 class ReceiverConfig:
     """Top-level receiver configuration (the gps_master + main.c role)."""
@@ -234,7 +305,7 @@ class ReceiverConfig:
     code_filter_len: int = 100        # CODE_FILTER_LENGTH (config.h:38)
     enable_code_filter: bool = True   # ENABLE_CODE_FILTER (config.h:36)
     enable_position: bool = True      # ENABLE_CALC_POSITION (config.h:33)
-    enable_rtcm: bool = False         # ENABLE_RTCM_SEND; not ported yet
+    enable_rtcm: bool = False         # ENABLE_RTCM_SEND (config.h:30)
     track_block_epochs: int = 100     # epochs per tracking scan call
     # Device-resident readback (runtime.digest): reduce each block's
     # (T, C) tracking outputs to a ~kB digest ON DEVICE (bit events +
@@ -244,8 +315,7 @@ class ReceiverConfig:
     device_digest: bool = True
     # Background re-acquisition of not-yet-detected PRNs during
     # streaming (late-rising satellites); 0 disables.  The firmware's
-    # channel set is fixed at compile time.  Not ported yet: the
-    # Receiver raises NotImplementedError when it is set (ROADMAP Queue 1).
+    # channel set is fixed at compile time.
     reacquire_period_ms: int = 0
     # Channel demotion (drop_dead_channels): a live channel is
     # "healthy" whenever its measured C/N0 is at or above the floor;
@@ -264,10 +334,14 @@ class ReceiverConfig:
     # catches integer-ms boundary faults that converge to confidently
     # wrong fixes when too few satellites exist for RAIM.  0 disables.
     max_resid_rms_m: float = 5000.0
-    # Aided bit sync of the coherent weak-signal chain (JAX package:
-    # track.aided_sync and the Receiver's _aided_sync_* logic).  Only read
-    # when TrackConfig.coherent_pll is set, which the port's Receiver does
-    # not run yet (ROADMAP Queue 1).
+    # Aided bit sync (track.aided_sync): when the tracking config runs
+    # the coherent PLL, channels get a histogram boundary search over
+    # every window of this much prompt history; confident detections
+    # are engaged directly.  0 disables.  A synced channel whose
+    # histogram confidence stays low for unhealthy_windows windows is
+    # re-anchored and de-synced; a moderate-confidence phase engages
+    # only when two consecutive windows agree within +/-1 epoch, a
+    # single window only above single_sigma.
     aided_sync_window_ms: int = 4000
     aided_sync_min_sigma: float = 5.0
     aided_sync_unhealthy_sigma: float = 3.0

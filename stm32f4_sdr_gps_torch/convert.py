@@ -4,7 +4,10 @@ They take and give numpy arrays only, so this module imports neither
 package's array library beyond torch: a caller hands over the leaves of
 the JAX package's ``TrackState`` or ``PallasScanState`` as numpy arrays
 (``np.asarray`` of each) and gets the port's tensors back, or the
-reverse.  The tests use them to feed both packages the same state.
+reverse.  The tests use them to feed both packages the same state, and
+the checkpoint loader to put a saved state on the receiver's device.
+Like every entry point of the port, they put tensors on the card unless
+the caller asks for the CPU (``device="cpu"``), and raise without a card.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import torch
 
 from .ops.track_scan import ScanState
 from .track.state import TrackState
+from .utils.device import card_or_cpu
 
 # dtype of each TrackState leaf in both packages
 _DTYPES = {
@@ -35,9 +39,10 @@ _DTYPES = {
 }
 
 
-def track_state_from_numpy(leaves, device="cpu") -> TrackState:
+def track_state_from_numpy(leaves, device="cuda") -> TrackState:
     """Port TrackState from the JAX TrackState's leaves in field order
-    (``[np.asarray(v) for v in jax_track_state]``)."""
+    (``[np.asarray(v) for v in jax_track_state]``), on ``device``."""
+    device = card_or_cpu(device, "track_state_from_numpy")
     return TrackState(*(
         torch.tensor(np.asarray(v, dtype=_DTYPES.get(f, np.float32)),
                      device=device)
@@ -52,11 +57,12 @@ def track_state_to_numpy(ts: TrackState) -> dict:
 
 
 def scan_state_from_jax(f32: np.ndarray, i32: np.ndarray, win: np.ndarray,
-                        device="cpu") -> ScanState:
+                        device="cuda") -> ScanState:
     """Port kernel state from a JAX ``PallasScanState``'s f32 (16, C, 1),
-    i32 (14, C, 1) and win (W, C, 1) planes: the trailing singleton axis
-    is dropped.  The JAX kernel's carrier-ramp cache (``ramp``/``dref``)
-    has no counterpart in the port and is not taken."""
+    i32 (14, C, 1) and win (W, C, 1) planes, on ``device``: the trailing
+    singleton axis is dropped.  The JAX kernel's carrier-ramp cache
+    (``ramp``/``dref``) has no counterpart in the port and is not taken."""
+    device = card_or_cpu(device, "scan_state_from_jax")
     def plane(a, dtype):
         return torch.tensor(np.asarray(a, dtype=dtype)[..., 0],
                             device=device)

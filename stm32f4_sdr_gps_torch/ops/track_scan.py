@@ -522,10 +522,26 @@ def track_scan_cuda(state: ScanState, epochs: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"track_scan kernel launch failed: CUDA error {rc}")
     track_scan_cuda.launches += 1
+    key = (kernel_mode(cfg), c)
+    track_scan_cuda.by_mode[key] = track_scan_cuda.by_mode.get(key, 0) + 1
     return ScanState(f32=f32, i32=i32, win=win), out
 
 
+# launches in all, and by (kernel_mode, channel count)
 track_scan_cuda.launches = 0
+track_scan_cuda.by_mode = {}
+
+
+def kernel_mode(cfg: TrackConfig) -> str:
+    """The loop mode ``cfg`` selects in the kernel: "default",
+    "coherent_bit_vote", "coherent_pll" or "coherent_pll_extK" (K-bit
+    data wipeoff), with "+emit_correlators" when the E/L slots are on."""
+    if cfg.coherent_pll:
+        mode = "coherent_pll" + (f"_ext{cfg.pll_ext_bits}"
+                                 if cfg.pll_ext_bits > 1 else "")
+    else:
+        mode = "coherent_bit_vote" if cfg.coherent_bit_vote else "default"
+    return mode + ("+emit_correlators" if cfg.emit_correlators else "")
 
 
 def channels_per_block(c: int, device=None) -> int:

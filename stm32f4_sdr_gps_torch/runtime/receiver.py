@@ -17,11 +17,14 @@ batched program per stage over a recorded capture:
 5. **Solve** — observables formed on the sample ledger at the solve
    cadence, Gauss-Newton PVT (gps_master.c:392-425).
 
-The tracking modes ``TrackConfig.coherent_bit_vote`` and
-``emit_correlators`` run on either tracking path.  Not ported yet (ROADMAP
-Queue 1): ``coherent_pll`` through the Receiver (its 256-epoch
-fine-Doppler handoff and aided bit sync), background re-acquisition and
-channel demotion, RTCM output, checkpointing.
+Every tracking mode runs on either tracking path.  The weak-signal chain
+(``TrackConfig.coherent_pll``) hands over through a 256-epoch fine
+Doppler search and engages each channel's bit grid by the aided
+histogram search (track.aided_sync), fed by the block digest.  Standby
+PRNs are re-acquired in the background and dead channels demoted
+(``ReceiverConfig.reacquire_period_ms``); RTCM3 frames are queued at
+their own cadence (``enable_rtcm``); the whole receiver is
+checkpointable (runtime.checkpoint).
 """
 
 from __future__ import annotations
@@ -32,7 +35,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..acquire.engine import AcqResult, acquire, refine_doppler_device
+from ..acquire.engine import (AcqResult, acquire, epochs_on,
+                              refine_doppler_device)
 from ..config import (
     CODE_LENGTH,
     FREQ_L1_HZ,
@@ -55,9 +59,10 @@ from ..pvt.observables import (ChannelObservables, HatchState,
 from ..pvt.solve import (Solution, identify_grid_fault, pntpos,
                          solution_plausible)
 from ..signal.ca_code import ca_table_bipolar
+from ..track.aided_sync import boundary_from_flip_hist, engage_bit_sync
 from ..track.pretrack import refine_code_phase
 from ..track.scan import track_block
-from ..track.state import TrackOutputs, TrackState, init_state
+from ..track.state import TrackOutputs, TrackState, concat_states, init_state
 from ..utils.device import card_or_cpu
 from ..utils.profiling import Profiler
 from .digest import cn0_from_moments, digest_block, digest_to_host
@@ -104,19 +109,42 @@ class ChannelStatus:
     snr_db: float = 0.0
     cn0_dbhz: float = 0.0
     carrier_cycles: float = 0.0   # integrated Doppler (L observable)
+    rtcm_phase_align_m: float = 0.0   # phaserange = align - lambda*L
     # Costas half-cycle ambiguity state: +1 = carrier in phase with nav
     # bits, -1 = PLL locked pi out of phase (the framer sees inverted
     # polarity; true phase = measured + 1/2 cycle), 0 = never resolved.
+    # half_cycle keeps the LAST resolved value through polarity-timeout
+    # gaps so the correction stays continuous; half_cycle_known gates
+    # the MSM DF420 ambiguity flag.
     half_cycle: int = 0
     half_cycle_known: bool = False
     doppler_hz: float = 0.0
     code_phase_chips: float = 0.0
     state_name: str = "IDLE"
-    bit_synced: bool = False      # period sync
+    bit_synced: bool = False      # period sync (coherent PLL engaged
+    #                               when cfg.track.coherent_pll)
+    # standby-search bookkeeping (acquisition.c:13, :217-224 semantics):
+    # learned Doppler hint confining re-acquisition, and the epoch the
+    # current search started — after AcqConfig.timeout_ms of continuous
+    # failure the hint is discarded and the search widens to full grid
+    acq_hint_hz: Optional[float] = None
+    acq_search_start_ms: int = -1
+    acq_timeouts: int = 0
+    # continuous-lock ledger for the MSM DF402 lock-time indicator:
+    # epoch (ledger ms) at which the current uninterrupted bit-sync span
+    # began; -1 = not locked.  Bit sync is the receiver's proxy for
+    # continuous carrier lock (losing it means the phase history is no
+    # longer trustworthy, so the phaserange also re-aligns).
+    lock_start_ms: int = -1
     # persistent integer-ms correction to the channel's subframe boundary
     # ledger, set when identify_grid_fault pins a wrong nav-bit grid
     grid_bias_ms: int = 0
     grid_faults: int = 0
+    # demotion ledger: last epoch the channel's measured C/N0 cleared the
+    # configured floor (ReceiverConfig.cn0_floor_dbhz); set to the join
+    # epoch at tracking start so new channels get the full grace window
+    # before drop_dead_channels can demote them
+    last_healthy_ms: int = -1
 
 
 def _m2m4_cn0(ip: np.ndarray, qp: np.ndarray,
@@ -189,20 +217,6 @@ class Receiver:
 
     def __init__(self, config: ReceiverConfig, device="cuda"):
         self.device = card_or_cpu(device, "Receiver")
-        if config.track.coherent_pll:
-            raise NotImplementedError(
-                "coherent_pll through the Receiver (the 256-epoch "
-                "fine-Doppler handoff and track/aided_sync.py) is not "
-                "ported yet: ROADMAP Queue 1")
-        if config.enable_rtcm:
-            raise NotImplementedError(
-                "enable_rtcm: RTCM output is not ported yet (ROADMAP "
-                "Queue 1, io/rtcm3.py)")
-        if config.reacquire_period_ms:
-            raise NotImplementedError(
-                "reacquire_period_ms: background re-acquisition and "
-                "channel demotion are not ported yet (ROADMAP Queue 1, "
-                "maybe_reacquire / drop_dead_channels)")
         self.config = config
         self.channels: List[ChannelStatus] = [
             ChannelStatus(prn=p, framer=self._new_framer())
@@ -210,13 +224,30 @@ class Receiver:
         ]
         self.track_state: Optional[TrackState] = None
         self.code_table = None
-        # canonical (C, 1023) bipolar table behind code_table
+        # canonical (C, 1023) bipolar table behind code_table: the device
+        # form depends on the tracking path (doubled upsampled for the
+        # half-chip paths, raw for the reference scan), so checkpoints
+        # store this and rebuild the device form on load
         self.code_table_np: Optional[np.ndarray] = None
         self.epoch_cursor = 0        # global sample ledger, epochs (= ms)
         self.solutions: List[Solution] = []
         self.solution_epochs: List[int] = []
+        self.rtcm_frames: List[bytes] = []
         self.standby_channels: List[ChannelStatus] = []
         self._last_solve_ms = 0
+        self._last_rtcm_ms = 0
+        self._last_reacq_ms = 0
+        # aided-sync window state: accumulated sign-flip histogram
+        # (cib, C), epochs accumulated, and the previous block's last
+        # prompt sign per channel (cross-block flip detection)
+        self._flip_hist: Optional[np.ndarray] = None
+        self._flip_hist_ms = 0
+        self._flip_prev_sign: Optional[np.ndarray] = None
+        self._aided_low_conf = np.zeros(0, int)
+        self._pending_phase = np.full(0, -1)
+        self._pending_cnt = np.zeros(0, int)
+        # aided bit-sync engagements per PRN (instrumentation)
+        self.aided_engagements: dict = {}
         # carried tracking-scan kernel state; valid only while
         # track_state IS _scan_carry_ref (identity check — any mutation
         # builds a new NamedTuple and invalidates it)
@@ -249,13 +280,9 @@ class Receiver:
         return torch.as_tensor(table_np, device=self.device)
 
     def _to_device(self, samples: np.ndarray, n_epochs: int) -> torch.Tensor:
-        """(n_epochs, S) complex64 block on the device: one host-to-device
-        copy."""
-        spe = self.config.plan.samples_per_epoch
-        block = np.ascontiguousarray(
-            samples[: n_epochs * spe].reshape(n_epochs, spe),
-            dtype=np.complex64)
-        return torch.as_tensor(block, device=self.device)
+        """(n_epochs, S) complex64 block on the device."""
+        return epochs_on(samples, n_epochs,
+                         self.config.plan.samples_per_epoch, self.device)
 
     # -- stages -----------------------------------------------------------
 
@@ -298,7 +325,10 @@ class Receiver:
         table_np = ca_table_bipolar(prns)
         phases = np.array([ch.acq.code_phase_chips for ch in live])
         spe = cfg.plan.samples_per_epoch
-        e = min(32, len(samples) // spe)
+        # the weak-signal (coherent) mode needs a longer squared-prompt
+        # span to beat the squaring loss at ~30 dBHz
+        fine_epochs = 256 if cfg.track.coherent_pll else 32
+        e = min(fine_epochs, len(samples) // spe)
         dev = self.device
         with self.profiler.stage("pretrack").time():
             # fine Doppler: long coherent FFT at the acquired code phase
@@ -322,6 +352,7 @@ class Receiver:
         )
         for ch in live:
             ch.state_name = "TRACKING"
+            ch.last_healthy_ms = start_epoch
 
     @property
     def _digest_active(self) -> bool:
@@ -365,6 +396,7 @@ class Receiver:
                 d = digest_to_host(d)
             with self.profiler.stage("decode").time():
                 self._consume_digest(d, n_epochs)
+            self._aided_sync_from_digest(d, n_epochs, epochs)
             self.epoch_cursor += n_epochs
             return
         with self.profiler.stage("track", budget_s=n_epochs * 1e-3).time():
@@ -375,7 +407,172 @@ class Receiver:
             outs = TrackOutputs(*(v.cpu().numpy() for v in outs))
         with self.profiler.stage("decode").time():
             self._consume_outputs(outs, n_epochs)
+        self._maybe_aided_sync(outs, n_epochs, epochs)
         self.epoch_cursor += n_epochs
+
+    def _maybe_aided_sync(self, outs: TrackOutputs, n_epochs: int,
+                          epochs: torch.Tensor) -> None:
+        """Aided-sync evaluation for the full-readback path: the same
+        flip-histogram statistics the device digest computes, built on the
+        host from the (T, C) outputs, feeding the shared decision logic
+        (_aided_sync_step)."""
+        cfg = self.config
+        if not (cfg.track.coherent_pll and cfg.aided_sync_window_ms):
+            return
+        cib = cfg.track.codes_in_bit
+        ip = outs.ip
+        signs = ip > 0
+        flips = signs[1:] != signs[:-1]
+        res = (self.epoch_cursor + np.arange(1, len(ip))) % cib
+        hist = np.zeros((cib, ip.shape[1]), np.int64)
+        for c in range(ip.shape[1]):
+            hist[:, c] = np.bincount(res[flips[:, c]], minlength=cib)
+        first = np.where(signs[0], 1, -1).astype(np.int8)
+        last = np.where(signs[-1], 1, -1).astype(np.int8)
+        sync_last = outs.period_sync_ok[-1].astype(bool)
+        grid_now = self.track_state.last_swap_epoch.cpu().numpy() % cib
+        cp0 = outs.code_phase_chips[0]
+        self._aided_sync_step(hist, first, last, sync_last, grid_now,
+                              cp0, n_epochs, epochs)
+
+    def _aided_sync_from_digest(self, d, n_epochs: int,
+                                epochs: torch.Tensor) -> None:
+        """Aided-sync evaluation from the block digest (numpy leaves): no
+        (T, C) readback anywhere on this path."""
+        cfg = self.config
+        if not (cfg.track.coherent_pll and cfg.aided_sync_window_ms):
+            return
+        self._aided_sync_step(
+            d.flip_hist.astype(np.int64), d.first_ip_sign, d.last_ip_sign,
+            d.period_sync_ok.astype(bool), d.swap_residue,
+            d.code_phase_first, n_epochs, epochs,
+        )
+
+    def _aided_sync_step(self, hist, first_sign, last_sign, sync_last,
+                         grid_now, cp0, n_epochs: int,
+                         epochs: torch.Tensor) -> None:
+        """Histogram bit-boundary search + squared-prompt Doppler re-anchor
+        (track.aided_sync), evaluated every full prompt window.  Handles
+        the two failure modes the run-time counters have at the C/N0 the
+        coherent PLL targets: they may never declare sync, or a
+        random-walk excursion declares sync on a WRONG boundary which
+        grid-locking would then freeze — a confident histogram that
+        disagrees overrides it.
+
+        ``hist`` is this block's (cib, C) sign-flip histogram keyed by
+        global epoch residue; ``epochs`` is the block's (T, S) tensor,
+        already on the device (the re-anchor reads it there, no second
+        copy).  All statistics are digest-sized."""
+        cfg = self.config
+        cib = cfg.track.codes_in_bit
+        n_chan = hist.shape[1]
+        # cross-block flip: the first epoch's sign vs the previous block's
+        # last (the in-block histogram can't see that edge)
+        if (self._flip_prev_sign is not None
+                and len(self._flip_prev_sign) == n_chan):
+            cross = self._flip_prev_sign != first_sign
+            hist[self.epoch_cursor % cib] += cross.astype(np.int64)
+        self._flip_prev_sign = np.asarray(last_sign)
+        if self._flip_hist is None or self._flip_hist.shape != hist.shape:
+            self._flip_hist = np.zeros_like(hist)
+            self._flip_hist_ms = 0
+        self._flip_hist += hist
+        self._flip_hist_ms += n_epochs
+        if self._flip_hist_ms < cfg.aided_sync_window_ms:
+            return
+        phases, confs = boundary_from_flip_hist(self._flip_hist)
+        self._flip_hist = None   # fresh window each evaluation
+        self._flip_hist_ms = 0
+        if len(self._pending_phase) != n_chan:
+            self._pending_phase = np.full(n_chan, -1)
+            self._pending_cnt = np.zeros(n_chan, int)
+
+        # two-consecutive-window phase agreement (within the +/-1
+        # split-edge ambiguity)
+        usable = confs >= cfg.aided_sync_repeat_sigma
+        pdist = np.minimum((phases - self._pending_phase) % cib,
+                           (self._pending_phase - phases) % cib)
+        agree = usable & (self._pending_phase >= 0) & (pdist <= 1)
+        self._pending_cnt = np.where(
+            agree, self._pending_cnt + 1, np.where(usable, 1, 0))
+        self._pending_phase = np.where(usable, phases, -1)
+
+        repeated = self._pending_cnt >= 2
+        single_shot = confs >= cfg.aided_sync_single_sigma
+        # a 1-epoch disagreement is within the split-edge ambiguity of the
+        # histogram — don't churn the grid over it
+        dist = np.minimum((phases - grid_now) % cib,
+                          (grid_now - phases) % cib)
+        wrong_grid = sync_last & (dist > 1) & repeated
+        fresh = ~sync_last & (
+            repeated | (single_shot & (confs >= cfg.aided_sync_min_sigma))
+        )
+        engage = fresh | wrong_grid
+
+        # Health check: a synced channel that is really tracking shows its
+        # bit boundary in the histogram.  Persistently low confidence
+        # while synced = wrong grid or carrier NCO — de-sync it so the next
+        # confident window can redo the engagement.
+        if len(self._aided_low_conf) != n_chan:
+            self._aided_low_conf = np.zeros(n_chan, int)
+        low = sync_last & (confs < cfg.aided_sync_unhealthy_sigma)
+        self._aided_low_conf = np.where(low, self._aided_low_conf + 1, 0)
+        unhealthy = (
+            self._aided_low_conf >= cfg.aided_sync_unhealthy_windows
+        ) & ~engage
+
+        if engage.any() or unhealthy.any():
+            # Re-anchor the carrier NCO from the raw block samples: the
+            # pre-engage per-epoch loop wanders tens of Hz at low C/N0
+            # (beyond the coherent loop's pull range), and a tracking
+            # Costas keeps the prompts near the real axis, so only a
+            # code-wiped measurement can see the NCO's frequency error.
+            # All channels refine in one device call; only the (C,)
+            # Doppler vector is read back.
+            dev = self.device
+            span = min(512, n_epochs)
+            prns = [ch.prn for ch in self.channels]
+            if len(prns) < n_chan:
+                # mesh ghost padding repeats channel 0
+                prns = prns + [prns[0]] * (n_chan - len(prns))
+            table = torch.as_tensor(ca_table_bipolar(prns[:n_chan]),
+                                    device=dev)
+            dops = self.track_state.doppler_hz.cpu().numpy()
+            refined = refine_doppler_device(
+                epochs[:span], table,
+                torch.as_tensor(np.asarray(cp0, np.float32), device=dev),
+                self.track_state.doppler_hz, cfg.plan,
+            ).cpu().numpy()
+            acted_mask = engage | unhealthy
+            new_dops = np.where(acted_mask[: len(dops)], refined, dops)
+            if engage.any():
+                self.track_state = engage_bit_sync(
+                    self.track_state, phases,
+                    self.epoch_cursor + n_epochs, cib, engage,
+                )
+                for c in np.nonzero(engage)[0]:
+                    if c < len(self.channels):
+                        prn = self.channels[c].prn
+                        self.aided_engagements[prn] = \
+                            self.aided_engagements.get(prn, 0) + 1
+            if unhealthy.any():
+                un = torch.as_tensor(unhealthy, device=dev)
+                ts = self.track_state
+                self.track_state = ts._replace(
+                    period_sync_ok=torch.where(un, False, ts.period_sync_ok),
+                    right_period_cnt=torch.where(
+                        un, torch.zeros_like(ts.right_period_cnt),
+                        ts.right_period_cnt),
+                )
+            self.track_state = self.track_state._replace(
+                doppler_hz=torch.as_tensor(new_dops, dtype=torch.float32,
+                                           device=dev)
+            )
+            acted = engage | unhealthy
+            self._aided_low_conf = np.where(
+                acted, 0, self._aided_low_conf)
+            self._pending_cnt = np.where(engage, 0, self._pending_cnt)
+            self._pending_phase = np.where(engage, -1, self._pending_phase)
 
     def _consume_outputs(self, outs: TrackOutputs, n_epochs: int) -> None:
         """Host side of the full-readback path (numpy leaves): bits →
@@ -390,12 +587,28 @@ class Receiver:
                     ch, int(outs.bit_value[t, c]), int(outs.bit_epoch[t, c])
                 )
             ch.snr_db = float(outs.snr_db[-1, c])
-            ch.bit_synced = bool(outs.period_sync_ok[-1, c])
+            sync_c = outs.period_sync_ok[:, c]
+            ch.bit_synced = bool(sync_c[-1])
+            # lock-time ledger (DF402): any un-synced epoch inside the
+            # block restarts the continuous-lock clock
+            if not ch.bit_synced:
+                if ch.lock_start_ms >= 0:
+                    ch.lock_start_ms = -1
+                    ch.rtcm_phase_align_m = 0.0
+            else:
+                unsync = np.nonzero(~sync_c)[0]
+                if unsync.size:
+                    ch.lock_start_ms = self.epoch_cursor + int(unsync[-1]) + 1
+                    ch.rtcm_phase_align_m = 0.0
+                elif ch.lock_start_ms < 0:
+                    ch.lock_start_ms = self.epoch_cursor
             # exclude nav-bit-edge epochs (the edge epoch and its
             # predecessor carry attenuated prompts)
             br_c = bit_ready[:, c]
             clean = ~(br_c | np.concatenate([br_c[1:], [False]]))
             ch.cn0_dbhz = _m2m4_cn0(outs.ip[clean, c], outs.qp[clean, c])
+            if ch.cn0_dbhz >= cfg.cn0_floor_dbhz:
+                ch.last_healthy_ms = self.epoch_cursor + n_epochs
             ch.doppler_hz = float(dop[-1, c])
             # integrated Doppler = carrier-phase observable (cycles);
             # float64 host accumulation avoids f32 drift
@@ -422,6 +635,8 @@ class Receiver:
         bit_epoch = d.bit_epoch.T.tolist()
         snr_db = d.snr_db.tolist()
         sync_ok = d.period_sync_ok.tolist()
+        any_loss = d.sync_any_loss.tolist()
+        last_unsync = d.last_unsync_epoch.tolist()
         cn0_m2 = d.cn0_m2.tolist()
         cn0_m4 = d.cn0_m4.tolist()
         cn0_n = d.cn0_n.tolist()
@@ -435,7 +650,21 @@ class Receiver:
                 self._push_channel_bit(ch, bv[k], be[k])
             ch.snr_db = snr_db[c]
             ch.bit_synced = sync_ok[c]
+            if not ch.bit_synced:
+                if ch.lock_start_ms >= 0:
+                    ch.lock_start_ms = -1
+                    ch.rtcm_phase_align_m = 0.0
+            else:
+                if any_loss[c]:
+                    ch.lock_start_ms = (
+                        self.epoch_cursor + last_unsync[c] + 1
+                    )
+                    ch.rtcm_phase_align_m = 0.0
+                elif ch.lock_start_ms < 0:
+                    ch.lock_start_ms = self.epoch_cursor
             ch.cn0_dbhz = cn0_from_moments(cn0_m2[c], cn0_m4[c], cn0_n[c])
+            if ch.cn0_dbhz >= cfg.cn0_floor_dbhz:
+                ch.last_healthy_ms = self.epoch_cursor + n_epochs
             ch.doppler_hz = doppler[c]
             ch.carrier_cycles += doppler_sum[c] * 1e-3
             ch.code_phase_chips = cp[c]
@@ -447,7 +676,7 @@ class Receiver:
         A Costas loop locks indistinguishably at 0 or pi; once the framer
         pins the bit polarity, an inverted polarity means the carrier is
         pi out of phase.  A polarity CHANGE breaks carrier continuity:
-        reset the Hatch filter."""
+        reset the Hatch filter and the RTCM phaserange alignment."""
         if not ch.framer.polarity_found:
             ch.half_cycle_known = False   # ambiguous until re-pinned
             return
@@ -455,6 +684,8 @@ class Receiver:
         if hc != ch.half_cycle:
             if ch.half_cycle != 0:        # a real slip, not first pin
                 ch.hatch = HatchState()
+                ch.rtcm_phase_align_m = 0.0
+                ch.lock_start_ms = -1     # DF402: phase discontinuity
             ch.half_cycle = hc
         ch.half_cycle_known = True
 
@@ -470,7 +701,7 @@ class Receiver:
         reference channel's L puts the carrier on the same clock
         realization as P; the same PRN is pinned into form_observations
         (ref_prn).  When the reference channel leaves the ready set the
-        clock base jumps and the Hatch histories restart."""
+        clock base jumps: phase alignments and Hatch histories restart."""
         by_prn = {ch.prn: ch for ch in ready}
         if self._phase_ref_prn not in by_prn:
             is_switch = self._phase_ref_prn != 0
@@ -483,13 +714,19 @@ class Receiver:
                 - c.subframe_tow_s * 1000.0,
             ).prn
             if is_switch:
+                # every reported phaserange jumps with the new clock base:
+                # restart alignments and signal the discontinuity via
+                # DF402 (the initial selection has none to signal)
                 for ch in self.channels:
+                    ch.rtcm_phase_align_m = 0.0
                     ch.hatch = HatchState()
+                    ch.lock_start_ms = -1
         ref_l = self._L_cycles(by_prn[self._phase_ref_prn])
         return {ch.prn: self._L_cycles(ch) - ref_l for ch in ready}
 
     def _run_cadences(self, end_ms: int) -> None:
-        """PVT at the solve cadence (gps_master.c:392-425)."""
+        """PVT at the solve cadence (gps_master.c:392-425) and RTCM at its
+        own (gps_master_transmit_obs, gps_master.c:430-456)."""
         cfg = self.config
         for ch in self.channels:
             self._update_half_cycle(ch)
@@ -499,6 +736,12 @@ class Receiver:
         ):
             self._last_solve_ms = end_ms
             self._try_solve(end_ms - 1)
+        if (
+            cfg.enable_rtcm
+            and end_ms - self._last_rtcm_ms >= cfg.rtcm_period_ms
+        ):
+            self._last_rtcm_ms = end_ms
+            self._emit_rtcm(end_ms - 1)
 
     def _filtered_code_phase(self, cp_hist: np.ndarray,
                              doppler_hz: float) -> float:
@@ -581,6 +824,215 @@ class Receiver:
         self.solutions.append(sol)
         self.solution_epochs.append(meas_epoch_ms)
 
+    def maybe_reacquire(self, recent_samples: np.ndarray) -> List[int]:
+        """Background acquisition of standby PRNs on recent samples;
+        detections join the live tracking state (late-rising satellites —
+        the firmware's channel set is fixed at flash time).
+
+        ``recent_samples`` must end at the current epoch cursor.  Returns
+        the PRNs added.
+        """
+        cfg = self.config
+        if not self.standby_channels:
+            return []
+        spe = cfg.plan.samples_per_epoch
+        need = max(cfg.acq.noncoherent_epochs,
+                   cfg.track.pre_track_epochs) * spe
+        if len(recent_samples) < need:
+            return []
+        window = recent_samples[-need:]
+        # search-state ledger (acquisition.c:217-224 semantics): start the
+        # per-channel search clock; a channel failing for longer than
+        # cfg.acq.timeout_ms discards its (possibly stale) Doppler hint
+        # and restarts the clock, widening to a full-grid search.
+        now = self.epoch_cursor
+        for ch in self.standby_channels:
+            if ch.acq_search_start_ms < 0:
+                ch.acq_search_start_ms = now
+            elif (cfg.acq.timeout_ms > 0
+                  and now - ch.acq_search_start_ms > cfg.acq.timeout_ms):
+                ch.acq_hint_hz = None
+                ch.acq_search_start_ms = now
+                ch.acq_timeouts += 1
+                ch.state_name = "ACQ_TIMEOUT"
+        hints = {}
+        for prn, h in zip(cfg.prns, cfg.doppler_hints_hz or ()):
+            if h is not None:
+                hints[int(prn)] = float(h)
+        for ch in self.standby_channels:
+            if ch.acq_hint_hz is not None:
+                hints[ch.prn] = float(ch.acq_hint_hz)
+            elif ch.acq_timeouts > 0:
+                hints.pop(ch.prn, None)     # timed out: full-grid search
+        prns = [ch.prn for ch in self.standby_channels]
+        dev = self.device
+        results = acquire(window, prns, cfg.plan, cfg.acq,
+                          doppler_hints_hz=hints or None, device=dev)
+        hits = [
+            (ch, res)
+            for ch, res in zip(self.standby_channels, results)
+            if res.detected
+        ]
+        if not hits:
+            return []
+        new_prns = [ch.prn for ch, _ in hits]
+        table_new = ca_table_bipolar(new_prns)
+        e = min(32, len(window) // spe)
+        dopplers = refine_doppler_device(
+            self._to_device(window, e),
+            torch.as_tensor(table_new, device=dev),
+            torch.as_tensor([res.code_phase_chips for _, res in hits],
+                            dtype=torch.float32, device=dev),
+            torch.as_tensor([res.doppler_hz for _, res in hits],
+                            dtype=torch.float32, device=dev),
+            cfg.plan,
+        ).cpu().numpy().astype(np.float64)
+        phases = refine_code_phase(
+            window, table_new,
+            np.array([res.code_phase_chips for _, res in hits]),
+            dopplers, cfg.plan, cfg.track, device=dev,
+        )
+        # the acquisition window ended at the cursor; the refined code
+        # phase refers to the window start — advance to the cursor
+        win_epochs = need // spe
+        adv = (win_epochs * spe * cfg.plan.chips_per_sample
+               * (1.0 + dopplers / 1.57542e9))
+        phases = (phases + adv) % 1023.0
+        new_state = init_state(len(hits), phases, dopplers,
+                               start_epoch=self.epoch_cursor,
+                               window=cfg.track.pll_check_window,
+                               device=dev)
+        self.track_state = concat_states(self.track_state, new_state)
+        self.code_table = torch.cat(
+            [self.code_table, self._device_code_table(table_new)], dim=0)
+        if self.code_table_np is not None:
+            self.code_table_np = np.concatenate(
+                [self.code_table_np, table_new], axis=0)
+        for ch, res in hits:
+            ch.acq = res
+            ch.state_name = "TRACKING"
+            ch.acq_search_start_ms = -1
+            ch.last_healthy_ms = self.epoch_cursor
+            self.channels.append(ch)
+            self.standby_channels.remove(ch)
+        return new_prns
+
+    def drop_dead_channels(self, cn0_floor_dbhz: float = None,
+                           grace_ms: int = None) -> List[int]:
+        """Demote channels that have been unhealthy (measured C/N0 below
+        ``cn0_floor_dbhz``) for longer than ``grace_ms`` to standby,
+        removing them from the live tracking state.  They become
+        candidates for background re-acquisition.
+
+        Staleness of a single health signal (the per-block C/N0 estimate
+        refreshing ``last_healthy_ms``) covers every failure mode
+        uniformly: C/N0 collapsed to a small positive value, the M2M4
+        estimator returning 0.0 on noise — regardless of what the
+        I/Q-ratio SNR happens to read — and a channel that once decoded
+        bits and then died.  The firmware never demotes at all (its
+        false-lock watchdog only kicks the carrier, tracking.c:306-326).
+        """
+        cfg = self.config
+        floor = (cfg.cn0_floor_dbhz if cn0_floor_dbhz is None
+                 else cn0_floor_dbhz)
+        grace = cfg.demote_grace_ms if grace_ms is None else grace_ms
+        dead = []
+        for c, ch in enumerate(self.channels):
+            # an explicit floor above the configured one can demote a
+            # channel whose ledger is fresh at the configured floor
+            if ch.cn0_dbhz >= floor:
+                continue
+            if self.epoch_cursor - ch.last_healthy_ms > grace:
+                dead.append(c)
+        if not dead:
+            return []
+        keep = np.array(
+            [c for c in range(len(self.channels)) if c not in dead],
+            dtype=np.int64,
+        )
+        if len(keep) == 0:
+            return []          # never drop the last channels
+        keep_t = torch.as_tensor(keep, device=self.device)
+        self.track_state = TrackState(*(x[keep_t] for x in self.track_state))
+        self.code_table = self.code_table[keep_t]
+        if self.code_table_np is not None:
+            self.code_table_np = self.code_table_np[keep]
+        dropped = []
+        for c in sorted(dead, reverse=True):
+            ch = self.channels.pop(c)
+            ch.state_name = "LOST"
+            ch.framer = self._new_framer()
+            ch.subframe_time_ms = 0
+            ch.half_cycle = 0
+            ch.half_cycle_known = False
+            # last tracked Doppler becomes the re-acquisition hint
+            # (warm-reset capability, gps_master.c:498-506)
+            if ch.bit_count > 0:
+                ch.acq_hint_hz = ch.doppler_hz
+            ch.acq_search_start_ms = -1
+            self.standby_channels.append(ch)
+            dropped.append(ch.prn)
+        return dropped
+
+    def _emit_rtcm(self, meas_epoch_ms: int) -> None:
+        """Queue RTCM3 frames: eph 1019 for newly complete ephemerides
+        (mask cleared after send, gps_master.c:441-446) + MSM5 obs."""
+        from ..io.rtcm3 import MsmObs, encode_1019, encode_msm, frame
+        from ..pvt.gpstime import time2gpst
+        from ..pvt.observables import LAMBDA_L1_M
+
+        for ch in self.channels:
+            if (ch.eph.received_mask & 0x7) == 0x7:
+                ch.eph.received_mask &= ~0x7
+                self.rtcm_frames.append(frame(encode_1019(ch.eph)))
+        ready = [ch for ch in self.channels
+                 if ch.eph.has_full_set and ch.subframe_time_ms > 0]
+        if len(ready) < 1:
+            return
+        chobs = [
+            ChannelObservables(
+                prn=ch.prn,
+                subframe_time_ms=ch.subframe_time_ms + ch.grid_bias_ms,
+                tow_s=ch.subframe_tow_s, week=ch.eph.week,
+                code_phase_chips=ch.code_phase_chips,
+                doppler_hz=ch.doppler_hz, snr_db=ch.snr_db,
+            )
+            for ch in ready
+        ]
+        rel_l = self._relative_L(ready)
+        obs = form_observations(chobs, meas_epoch_ms,
+                                ref_prn=self._phase_ref_prn)
+        if not obs:
+            return
+        msm = []
+        for o, ch in zip(obs, ready):
+            # carrier observable: the channel's half-cycle-corrected,
+            # clock-rebased phase (form_observations has no carrier state)
+            o.L = rel_l[ch.prn]
+            # carrier-smoothed pseudorange (Hatch); HatchState.update is
+            # idempotent per epoch, so a coincident solve + RTCM epoch
+            # folds once
+            o.P = ch.hatch.update(o.P, o.L, epoch_ms=meas_epoch_ms)
+            # phaserange: ambiguity initialized so it aligns with the
+            # pseudorange at first emission, carrier-continuous after.
+            # Positive Doppler = closing range, so the range-domain phase
+            # observable DECREASES as L grows.
+            if ch.rtcm_phase_align_m == 0.0:
+                ch.rtcm_phase_align_m = o.P + LAMBDA_L1_M * o.L
+            lock_s = (
+                (meas_epoch_ms - ch.lock_start_ms) / 1000.0
+                if ch.lock_start_ms >= 0 else 0.0
+            )
+            msm.append(MsmObs(
+                sat=o.sat, pseudorange_m=o.P, doppler_hz=o.D,
+                cn0_dbhz=max(o.snr + 30.0, 0.0),
+                lock_time_s=lock_s,
+                phaserange_m=ch.rtcm_phase_align_m - LAMBDA_L1_M * o.L,
+                half_cycle_ambiguous=not ch.half_cycle_known,
+            ))
+        tow_s, _ = time2gpst(obs[0].time)
+        self.rtcm_frames.append(frame(encode_msm(1075, tow_s, msm)))
+
     def warm_reset(self, samples: np.ndarray) -> None:
         """Operator warm reset: drop tracking/nav state but keep each
         channel's learned Doppler as the new acquisition hint
@@ -622,6 +1074,15 @@ class Receiver:
             chunk = samples[pos: pos + block]
             self.process_block(chunk)
             pos += (len(chunk) // spe) * spe
+            if (
+                cfg.reacquire_period_ms
+                and self.epoch_cursor - self._last_reacq_ms
+                >= cfg.reacquire_period_ms
+            ):
+                self._last_reacq_ms = self.epoch_cursor
+                self.drop_dead_channels()
+                if self.standby_channels:
+                    self.maybe_reacquire(samples[:pos])
             if status_callback is not None:
                 status_callback(self)
         return ReceiverReport(

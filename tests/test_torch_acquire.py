@@ -105,11 +105,3 @@ def test_handoff_matches_jax(capture):
     got_cp = refine_code_phase(capture, table, cp, fine, T_PLAN,
                                TrackConfig(), device="cpu")
     assert _cp_dist(got_cp, want_cp).max() < 0.05
-
-
-@pytest.mark.parametrize("change", [dict(use_matmul_dft=True),
-                                    dict(edge_hypotheses=4)])
-def test_unported_acquisition_modes_raise(capture, change):
-    with pytest.raises(NotImplementedError):
-        teng.acquire(capture, [2], T_PLAN, AcqConfig(**change),
-                     device="cpu")

@@ -23,7 +23,11 @@ row sums, in other orders on the two sides).  P6-P8: each probe module's
 inputs and on seeded ones.  P1-P4: bit for bit (a roll is a copy), at 8,
 32 and 128 rows on the tools' inputs and on seeded ones, and at an odd
 width (the row kernel's scalar path); the wrappers refuse outputs off a
-16-byte boundary where the kernels store 16 bytes a thread.
+16-byte boundary where the kernels store 16 bytes a thread.  The
+matmul DFT's products (torch calls, not kernels): "highest" within the
+float32 bound K * 2^-24 * (|a| @ |b|) of a float64 product and under 1 %
+of a TF32 product's error; "default" within the same bound of the
+float64 product of its bf16-rounded inputs, with a float32 result.
 """
 
 import numpy as np
@@ -32,6 +36,7 @@ import torch
 
 from stm32f4_sdr_gps_torch.config import (BASEBAND_PLAN, ReceiverConfig,
                                           TrackConfig)
+from stm32f4_sdr_gps_torch.ops import correlate as corr
 from stm32f4_sdr_gps_torch.ops import epl
 from stm32f4_sdr_gps_torch.ops import track_scan as ts
 from stm32f4_sdr_gps_torch.ops.epl import upsampled_code_doubled
@@ -569,3 +574,43 @@ def test_roll_kernels_refuse_a_misaligned_out(dev):
     out = roll_wide.dyn_roll_cuda(x, amt, out=_misaligned(x.shape, dev))
     torch.cuda.synchronize()
     assert torch.equal(out, roll_wide.roll_rows_reference(x, amt))
+
+
+def test_dft_products_hold_their_precision(dev):
+    """The matmul DFT's products at the acquisition's shape against
+    float64 products of the same inputs; with TF32 turned on, "highest"
+    refuses to run rather than change the process-wide setting."""
+    k = 2046
+    a = torch.as_tensor(np.random.default_rng(15).standard_normal(
+        (64, k)).astype(np.float32), device=dev)
+    wc, _ = corr.dft_tables_device(k, device=dev)
+
+    def bf16(t):
+        return t.to(torch.bfloat16).to(torch.float32)
+
+    def tf32(t):
+        return ((t.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF
+                ).view(torch.float32)
+
+    def f64(x, y):
+        return x.double() @ y.double()
+
+    errs = {}
+    for name, (x, y) in (("highest", (a, wc)),
+                         ("default", (bf16(a), bf16(wc)))):
+        got = corr.dft_matmul(a, wc, name)
+        assert got.dtype == torch.float32, name
+        err = (got.double() - f64(x, y)).abs()
+        assert (err <= k * 2.0 ** -24 * f64(x.abs(), y.abs())).all(), name
+        errs[name] = err.max().item()
+    tf32_err = (f64(tf32(a), tf32(wc)) - f64(a, wc)).abs().max().item()
+    assert errs["highest"] < 0.01 * tf32_err
+    m = torch.backends.cuda.matmul
+    prev = m.fp32_precision
+    try:
+        m.fp32_precision = "tf32"
+        with pytest.raises(RuntimeError, match="TF32"):
+            corr.dft_matmul(a, wc, "highest")
+        assert m.fp32_precision == "tf32"
+    finally:
+        m.fp32_precision = prev

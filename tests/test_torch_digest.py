@@ -44,7 +44,8 @@ def test_digest_matches_jax(block, code_filter):
     want = j_digest(outs, st, JTrackConfig(codes_in_bit=CIB), 50,
                     code_filter)
     t_outs = TrackOutputs(*(torch.as_tensor(np.array(v)) for v in outs))
-    t_st = convert.track_state_from_numpy([np.asarray(v) for v in st])
+    t_st = convert.track_state_from_numpy([np.asarray(v) for v in st],
+                                           device="cpu")
     got = digest_to_host(digest_block(t_outs, t_st,
                                       TrackConfig(codes_in_bit=CIB), 50,
                                       code_filter))

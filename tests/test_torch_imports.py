@@ -7,6 +7,11 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "stm32f4_sdr_gps_torch")
 
+# the modules ported from the JAX package's weak-signal chain, capture
+# ingest, checkpoint, RTCM and command line
+NEW_MODULES = ("track.aided_sync", "io.bits", "io.rtcm3", "signal.capture",
+               "runtime.checkpoint", "__main__")
+
 _PROBE = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None            # any `import jax` now raises
@@ -18,6 +23,7 @@ bad = [m for m in sys.modules
        if m == "jax" and sys.modules[m] is not None
        or m.startswith("jax.") or m.startswith("stm32f4_sdr_gps_tpu")]
 assert not bad, bad
+print(" ".join(names))
 print(len(names))
 """
 
@@ -33,3 +39,6 @@ def test_port_imports_without_jax():
         for _, _, files in os.walk(PKG) for f in files)
     n_pkgs = sum("__init__.py" in files for _, _, files in os.walk(PKG)) - 1
     assert int(res.stdout.split()[-1]) == n_files + n_pkgs
+    imported = res.stdout.split()[:-1]
+    for mod in NEW_MODULES:
+        assert f"stm32f4_sdr_gps_torch.{mod}" in imported, mod

@@ -249,14 +249,6 @@ def test_entry_points_default_to_the_card():
         entry()
 
 
-@pytest.mark.parametrize("change", [
-    dict(enable_rtcm=True), dict(reacquire_period_ms=1000),
-    dict(track=TrackConfig(coherent_pll=True))])
-def test_unported_receiver_options_raise(change):
-    with pytest.raises(NotImplementedError):
-        Receiver(ReceiverConfig(**change), device="cpu")
-
-
 def test_entry_block_program():
     from stm32f4_sdr_gps_torch.entry import entry
 

@@ -221,13 +221,15 @@ def test_scan_state_pack_roundtrip_and_convert():
         assert torch.equal(getattr(st0, f), getattr(st1, f)), f
     # the JAX package's state and kernel planes convert to the port's
     jst = j_init_state(8, np.linspace(0, 1000, 8), np.linspace(-4e3, 4e3, 8))
-    pst = convert.track_state_from_numpy([np.asarray(v) for v in jst])
+    pst = convert.track_state_from_numpy([np.asarray(v) for v in jst],
+                                         device="cpu")
     for f in st0._fields:
         assert torch.equal(getattr(pst, f), getattr(st0, f)), f
         np.testing.assert_array_equal(convert.track_state_to_numpy(pst)[f],
                                       np.asarray(getattr(jst, f)))
     jps = j_state_from_track_state(jst)
-    ps = convert.scan_state_from_jax(jps.f32, jps.i32, jps.win)
+    ps = convert.scan_state_from_jax(jps.f32, jps.i32, jps.win,
+                                     device="cpu")
     want = ts.state_from_track_state(st0)
     for a, b in zip(ps, want):
         assert torch.equal(a, b)
