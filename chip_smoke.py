@@ -144,6 +144,25 @@ before the result line):
    ``python -m stm32f4_sdr_gps_torch run <file> --format bits16`` as a
    subprocess on the card: exit 0, PRN 19 tracking.
 
+17. the mesh and multi-process runtime, on grids whose positions all
+   name the card (they check the sharding and the collectives on one
+   card and measure no scaling): (a) phase 3's 32-channel scenario
+   through ``StreamingTracker`` on 8 positions, K1 once a position a
+   block, bit for bit one K1 launch over all 32 channels in every output
+   and state plane; then ``dryrun_multichip(8)`` (sharded acquisition,
+   the halo, the sharded reference scan and K1, the MeshReceiver to a
+   fix within 100 m of the single-process Receiver's with equal subframe
+   ledgers); (b) the MeshReceiver on phase 4's capture, 4 PRNs and 4
+   ghost channels on a 2 x 4 grid: fix within 500 m, |vel| < 10 m/s, K1
+   once a position a block (1 channel each) and nothing else, its
+   distance from phase 4's fix, wall time and ``track`` stage; (c) two
+   processes x 4 positions over gloo on loopback TCP,
+   ``probes/multiprocess_run.py --device cuda --slow``: the acquisition
+   cube and halo across the processes, tracking across the boundary,
+   per-process decode of 8 PRNs, and the distributed 29 s fix within
+   150 m; a rank that exits non-zero or outlives its time limit fails
+   the run.  Phase 17's records go into K1's entry of the kernels line.
+
 The fix-scenario captures are simulated on the host where their phase
 starts (phase 11's and 12's simulation times are printed, not counted in
 the phases' seconds).
@@ -652,7 +671,7 @@ def _run_receiver(sc, track, label, acq=None):
 def main_path(sc, label="main", **track):
     """K1's main path: the TrackConfig (default, or with ``track``) on the
     card; returns K1's launches, the final fix error (m), the wall time
-    (s) and the mean ``track`` stage per block (ms)."""
+    (s), the mean ``track`` stage per block (ms) and the final fix."""
     import numpy as np
 
     from stm32f4_sdr_gps_torch.config import TrackConfig
@@ -666,7 +685,8 @@ def main_path(sc, label="main", **track):
              f"{blocks} blocks")
     err = float(np.linalg.norm(report.solutions[-1].rr - sc.rr_true))
     return (counts["track_scan"], err, wall,
-            rx.profiler.stages["track"].mean_s * 1e3)
+            rx.profiler.stages["track"].mean_s * 1e3,
+            report.solutions[-1].rr)
 
 
 WRAP_EDGES = (0.0, 0.2, 0.49, 0.51, 1022.6, 1022.99)
@@ -1839,6 +1859,182 @@ def wire_format():
     return {"card_vs_host_max_abs": err, "ms": ms, "cli_s": cli_s}
 
 
+# ---------------------------------------------------------------- phase 17
+
+def _mesh(devices=8):
+    """A 2 x (devices / 2) (time, chan) mesh whose positions all name the
+    card: it checks the sharding and the collectives on one card and
+    measures no scaling."""
+    import torch
+
+    from stm32f4_sdr_gps_torch.parallel.mesh import make_mesh
+
+    return make_mesh(time=2, devices=[torch.device("cuda", 0)] * devices)
+
+
+def mesh_k1_equal(scenario):
+    """17a, first part: phase 3's scenario through StreamingTracker on 8
+    positions of the card, K1 once a position a block against one K1
+    launch over all the channels, bit for bit in every state plane and
+    output: its 32 channels (4 a position) in two 500-epoch blocks, and
+    its first 8 channels (1 a position, the shape of the MeshReceiver and
+    the two-rank run) in one 1000-epoch block.  Returns the launches of
+    each case."""
+    import torch
+
+    from stm32f4_sdr_gps_torch.config import BASEBAND_PLAN, TrackConfig
+    from stm32f4_sdr_gps_torch.ops import track_scan as ts
+    from stm32f4_sdr_gps_torch.parallel.streaming import StreamingTracker
+    from stm32f4_sdr_gps_torch.probes.scan_time import CIB
+    from stm32f4_sdr_gps_torch.track.scan import track_block
+    from stm32f4_sdr_gps_torch.track.state import TrackState
+
+    st, x, u2 = scenario
+    cfg = TrackConfig(codes_in_bit=CIB)
+    rec = {}
+    for c, blocks in ((32, (x[:500], x[500:])), (8, (x,))):
+        st_c = TrackState(*(v[:c] for v in st))
+        tracker = StreamingTracker(st_c, u2[:c], _mesh(), BASEBAND_PLAN, cfg)
+        one = st_c
+        _reset_counts()
+        for blk in blocks:
+            got = tracker.process(blk)
+            one, want = track_block(one, blk, u2[:c], BASEBAND_PLAN, cfg)
+            torch.cuda.synchronize()
+            for f, g, w in zip(want._fields, got, want):
+                if not torch.equal(g, w):
+                    fail(f"mesh K1 at {c // 8} ch a position: output {f} "
+                         "differs from the unsharded run")
+            for f, g, w in zip(one._fields, tracker.gather_state(x.device),
+                               one):
+                if not torch.equal(g, w):
+                    fail(f"mesh K1 at {c // 8} ch a position: state plane "
+                         f"{f} differs from the unsharded run")
+        by_mode = dict(ts.track_scan_cuda.by_mode)
+        # each block: once a position at c / 8 channels, once unsharded
+        want_modes = {("default", c // 8): 8 * len(blocks),
+                      ("default", c): len(blocks)}
+        if by_mode != want_modes or ts.track_scan_reference.calls:
+            fail(f"mesh K1 at {c // 8} ch a position: K1 {_launched(by_mode)}"
+                 f", plain {ts.track_scan_reference.calls}; want "
+                 f"{_launched(want_modes)}")
+        rec[f"{c // 8}ch_a_position"] = by_mode[("default", c // 8)]
+        print(f"[mesh] K1 once a position, 8 positions x {c // 8} ch of the "
+              f"card, {len(blocks)} block(s) of {len(blocks[0])} epochs: "
+              f"{by_mode[('default', c // 8)]} launches, every output and "
+              f"state plane bit for bit one {c}-channel launch")
+    return rec
+
+
+def mesh_phase(sc, scenario, fix_rr):
+    """Phase 17: the mesh and multi-process runtime on the card.
+    17a: K1 once a position against one launch (mesh_k1_equal), then
+    ``dryrun_multichip(8)``; 17b: the MeshReceiver on phase 4's capture
+    on a 2 x 4 grid of the card (4 PRNs and 4 ghost channels) to a fix
+    within 500 m, |vel| < 10 m/s, K1 launched once a position a block and
+    no plain version; 17c: two ranks x 4 positions of the card over gloo
+    (``probes/multiprocess_run.py --device cuda --slow``), each within
+    its time limit, the distributed 29 s fix within 150 m.  Returns its
+    record."""
+    import numpy as np
+    import torch
+
+    from stm32f4_sdr_gps_torch.config import ReceiverConfig
+    from stm32f4_sdr_gps_torch.entry import dryrun_multichip
+    from stm32f4_sdr_gps_torch.ops import track_scan as ts
+    from stm32f4_sdr_gps_torch.probes import multiprocess_run
+    from stm32f4_sdr_gps_torch.runtime.mesh_receiver import MeshReceiver
+
+    rec = {"mesh_k1_launches_bit_equal": mesh_k1_equal(scenario)}
+    _reset_counts()
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(8, device="cuda")
+    torch.cuda.synchronize()
+    rec["dryrun"] = {
+        "wall_s": time.perf_counter() - t0,
+        "fix_agreement_m": dry["fix_agreement_m"],
+        "acq_rel_err": dry["acq_rel_err"],
+        "solutions": dry["solutions"],
+        "subframe_time_ms": dry["subframe_time_ms"],
+        "k1_launches": {f"{m} x {c} ch": n for (m, c), n
+                        in sorted(ts.track_scan_cuda.by_mode.items())},
+        "track_scan_plain": ts.track_scan_reference.calls}
+    if ts.track_scan_reference.calls:
+        fail(f"dryrun_multichip on the card called K1's plain version "
+             f"{ts.track_scan_reference.calls} times")
+    print(f"[mesh] 17a dryrun_multichip(8) on the card: mesh-vs-single fix "
+          f"{dry['fix_agreement_m']:.3f} m, K1 {rec['dryrun']['k1_launches']}"
+          f", {rec['dryrun']['wall_s']:.1f} s")
+
+    # 17b: the MeshReceiver on the 29 s capture
+    cfg = ReceiverConfig(prns=sc.prns, track_block_epochs=1000)
+    rx = MeshReceiver(cfg, _mesh())
+    _reset_counts()
+    t0 = time.perf_counter()
+    report = rx.run(sc.samples)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    by_mode = dict(ts.track_scan_cuda.by_mode)
+    blocks = rx.profiler.stages["track"].calls
+    if (counts["track_scan"] != 8 * blocks or set(by_mode) != {("default", 1)}
+            or counts["track_scan_plain"] or counts["epl"]
+            or counts["epl_plain"]):
+        fail(f"17b: {counts}, K1 {_launched(by_mode)} for {blocks} blocks "
+             "(want K1 once a position a block, 1 channel each)")
+    if not report.solutions:
+        fail("17b: the MeshReceiver made no fix")
+    sol = report.solutions[-1]
+    err = float(np.linalg.norm(sol.rr - sc.rr_true))
+    vel = float(np.linalg.norm(sol.vel))
+    from_p4 = float(np.linalg.norm(sol.rr - fix_rr))
+    if not (err < 500.0 and vel < 10.0 and from_p4 < 5.0):
+        fail(f"17b: fix error {err:.1f} m / |vel| {vel:.2f} m/s / "
+             f"{from_p4:.2f} m from phase 4's fix (bands 500 m, 10 m/s, 5 m)")
+    if "gather" in rx.profiler.stages:
+        fail("17b: the default config gathered the tracker's state "
+             f"{rx.profiler.stages['gather'].calls} times")
+    rec["mesh_receiver_29s"] = {
+        "fix_error_m": err, "vel_mps": vel, "from_phase4_fix_m": from_p4,
+        "wall_s": wall, "blocks": blocks,
+        "track_ms_per_block": rx.profiler.stages["track"].mean_s * 1e3,
+        "k1_launches": counts["track_scan"]}
+    print(f"[mesh] 17b MeshReceiver, 4 PRNs + 4 ghosts on 2 x 4 positions of "
+          f"the card: fix {err:.2f} m, |vel| {vel:.2f} m/s, "
+          f"{rec['mesh_receiver_29s']['from_phase4_fix_m']:.2f} m from phase "
+          f"4's fix; {wall:.2f} s wall, track "
+          f"{rec['mesh_receiver_29s']['track_ms_per_block']:.2f} ms a block; "
+          f"K1 {_launched(by_mode)}")
+    print(rx.profiler.report())
+
+    # 17c: two ranks x 4 positions of the card over gloo
+    t0 = time.perf_counter()
+    ranks = multiprocess_run.launch("cuda", fix=sc, timeout_s=300.0)
+    # each rank checked its own counts (K1 once a position a block, no
+    # plain call, from 0 each stage); held here again on its record
+    for r in ranks:
+        for stage in ("tracking", "decode", "fix"):
+            got = r[stage]["launches"]
+            want = len(r["positions"]) * r[stage]["blocks"]
+            if (got["k1"] != want or got["plain"]
+                    or set(got["k1_by_mode"]) != {"default x 1 ch"}):
+                fail(f"17c rank {r['rank']} {stage}: {got}, want {want} K1 "
+                     "launches at 1 ch and no plain call")
+    rec["two_ranks"] = {
+        "wall_s": time.perf_counter() - t0,
+        "fix_error_m": ranks[0]["fix"]["fix_error_m"],
+        "k1_launches": {f"rank{r['rank']}_{stage}": r[stage]["launches"]["k1"]
+                        for r in ranks for stage in ("tracking", "decode",
+                                                     "fix")},
+        "ranks": ranks}
+    for r in ranks:
+        print(f"[mesh] 17c rank {r['rank']}: {r}")
+    print(f"[mesh] 17c two ranks x 4 positions of the card over gloo: "
+          f"distributed fix {ranks[0]['fix']['fix_error_m']:.2f} m, "
+          f"{rec['two_ranks']['wall_s']:.1f} s with the captures' simulation")
+    return rec
+
+
 def main():
     sys.path.insert(0, HERE)
     import stm32f4_sdr_gps_torch
@@ -1854,8 +2050,8 @@ def main():
     ptxas = build()
     k1_err, k1_times, scenario, k1_modes = kernel_vs_plain()
     sc = _capture("main")
-    k1_launches, fix_err, wall, track_ms = main_path(sc)
-    cbv_launches, cbv_err, cbv_wall, cbv_track_ms = main_path(
+    k1_launches, fix_err, wall, track_ms, fix_rr = main_path(sc)
+    cbv_launches, cbv_err, cbv_wall, cbv_track_ms, _ = main_path(
         sc, "main-cbv", coherent_bit_vote=True)
     k2_err, k2_times = epl_vs_plain()
     loop_err = closed_loop(scenario)
@@ -1887,7 +2083,10 @@ def main():
     t0 = time.perf_counter()
     wire = wire_format()
     phase_s[16] = time.perf_counter() - t0
-    print(f"[phases] seconds of phases 11-16: "
+    t0 = time.perf_counter()
+    mesh = mesh_phase(sc, scenario, fix_rr)
+    phase_s[17] = time.perf_counter() - t0
+    print(f"[phases] seconds of phases 11-17: "
           f"{ {k: round(v, 1) for k, v in phase_s.items()} }")
     src = "stm32f4_sdr_gps_torch/csrc/"
     k2_b4, k2_b32 = k2_bound(4), k2_bound(32)
@@ -1941,6 +2140,7 @@ def main():
         "rtcm_checkpoint": rtcm,
         "acquisition_32prn_ms": acq_ms,
         "wire_format": wire,
+        "mesh": mesh,
     }, {
         "name": "epl",
         "route": "cuda",

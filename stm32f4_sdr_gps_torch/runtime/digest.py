@@ -13,9 +13,8 @@ to a fixed-shape digest, so the raw outputs never leave it:
   capability, gps_master.c:332-388);
 * M2M4 C/N0 moments over bit-edge-clean epochs;
 * the block's Doppler integral (carrier-phase observable increment);
-* the prompt sign-flip histogram and block-edge state that the JAX
-  package's aided bit sync reads (computed here so the digest is the
-  same; its consumer is not ported yet).
+* the prompt sign-flip histogram and block-edge state that the aided
+  bit sync reads (runtime.receiver.Receiver._aided_sync_from_digest).
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """The hand-written kernels on the card against their plain torch
 versions: the tracking scan (K1, in each of its modes), the per-epoch
 E/P/L correlator (K2), the correlator-bank probe (P5), the epoch-cost
-probes (P6-P8) and the roll probes (P1-P4).
+probes (P6-P8) and the roll probes (P1-P4); K1 once a position of a
+mesh that repeats the card.
 
 Needs an NVIDIA GPU and nvcc; every test skips without a CUDA device.
 Imports only the port, torch and numpy (the machine with the card has no
@@ -227,6 +228,33 @@ def test_kernel_grouping_matches_plain_version(dev, side):
         assert torch.equal(a, b[:, idx])
     ps_r, out_r = ts.track_scan_reference(big, x, u2_big, PLAN, cfg)
     assert_scan_match(ps_k, out_k, ps_r, out_r)
+
+
+def test_kernel_per_mesh_position_equals_unsharded(dev):
+    """StreamingTracker on an 8-position mesh whose positions all name
+    the card: K1 once a position a block (its channel rows each) equals
+    one K1 launch over all the channels, bit for bit, in state planes
+    and outputs, over two blocks."""
+    from stm32f4_sdr_gps_torch.parallel.mesh import make_mesh
+    from stm32f4_sdr_gps_torch.parallel.streaming import StreamingTracker
+
+    cfg = TrackConfig(codes_in_bit=CIB, pll_bad_state_threshold=10**6)
+    ps0, x, u2 = _inputs(90, dev)
+    st0 = ts.state_to_track_state(ps0)
+    tracker = StreamingTracker(st0, u2, make_mesh(
+        time=2, chan=4, devices=[dev] * 8), PLAN, cfg)
+    st_one = st0
+    for blk in (x[:45], x[45:]):
+        launches = ts.track_scan_cuda.launches
+        got = tracker.process(blk)
+        assert ts.track_scan_cuda.launches - launches == 8
+        st_one, want = track_block(st_one, blk, u2, PLAN, cfg)
+        for f, g, w in zip(want._fields, got, want):
+            assert torch.equal(g, w), f
+        for f, g, w in zip(st_one._fields, tracker.gather_state(dev),
+                           st_one):
+            assert torch.equal(g, w), f
+    assert bool(want.bit_ready.any())
 
 
 def test_scan_parts_builds_see_the_scan_inputs(dev):

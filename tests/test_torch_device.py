@@ -4,8 +4,9 @@ epoch vote, the host fine-Doppler search), the DFT tables, the pre-track
 code refinement, the tracking state and its conversions from the JAX
 package's, the code FFT table, the wire-format conditioner, the
 checkpoint loader, the Receiver and entry() (the last two also in
-test_torch_receiver.py; the CLI in test_torch_cli.py).  On the CPU each
-call passes device="cpu"."""
+test_torch_receiver.py; the CLI in test_torch_cli.py), and the mesh,
+MeshReceiver, dryrun_multichip and the multi-process probe.  On the CPU
+each call passes device="cpu" (CPU devices to the mesh)."""
 
 import numpy as np
 import pytest
@@ -16,11 +17,14 @@ from stm32f4_sdr_gps_torch.acquire.engine import (acquire,
                                                   acquire_epoch_vote,
                                                   refine_doppler)
 from stm32f4_sdr_gps_torch.config import BASEBAND_PLAN, ReceiverConfig
-from stm32f4_sdr_gps_torch.entry import entry
+from stm32f4_sdr_gps_torch.entry import dryrun_multichip, entry
 from stm32f4_sdr_gps_torch.ops.correlate import (code_fft_conj,
                                                  dft_tables_device)
+from stm32f4_sdr_gps_torch.parallel.mesh import make_mesh
+from stm32f4_sdr_gps_torch.probes import multiprocess_run
 from stm32f4_sdr_gps_torch.runtime.checkpoint import (load_receiver,
                                                       save_receiver)
+from stm32f4_sdr_gps_torch.runtime.mesh_receiver import MeshReceiver
 from stm32f4_sdr_gps_torch.runtime.receiver import Receiver
 from stm32f4_sdr_gps_torch.signal.ca_code import ca_table_bipolar
 from stm32f4_sdr_gps_torch.signal.capture import reference_to_baseband_device
@@ -100,3 +104,37 @@ def test_load_receiver_defaults_to_the_card(tmp_path):
                        match=r"Receiver\(device='cuda'\).*device='cpu'"):
         _load_receiver(tmp_path)
     assert _load_receiver(tmp_path, device="cpu").device.type == "cpu"
+
+
+MESH_CALLS = {
+    "make_mesh": (lambda: make_mesh(time=2),
+                  r"make_mesh\(devices=None\).*CUDA.*devices=\['cpu'\]"),
+    "make_mesh_cuda_devices": (
+        lambda: make_mesh(devices=["cuda"] * 2),
+        r"make_mesh\(device='cuda'\).*device='cpu'"),
+    "MeshReceiver": (lambda: MeshReceiver(ReceiverConfig(prns=(1,))),
+                     r"make_mesh\(devices=None\).*CUDA"),
+    "dryrun_multichip": (lambda: dryrun_multichip(8),
+                         r"dryrun_multichip\(device='cuda'\).*device='cpu'"),
+    "multiprocess_run": (
+        lambda: multiprocess_run.main(["0", "1", "0", "--captures", "."]),
+        r"multiprocess_run\(device='cuda'\).*device='cpu'"),
+}
+
+
+@pytest.mark.parametrize("name", list(MESH_CALLS))
+def test_mesh_entry_points_default_to_the_card(name):
+    """The mesh, the MeshReceiver, the dry run and the multi-process
+    probe run on the card unless given CPU devices: without a card they
+    raise before any work (no CPU fallback)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    call, match = MESH_CALLS[name]
+    with pytest.raises(RuntimeError, match=match):
+        call()
+
+
+def test_mesh_receiver_on_cpu_devices():
+    rx = MeshReceiver(ReceiverConfig(prns=(1, 2)),
+                      make_mesh(time=1, devices=["cpu"] * 2))
+    assert rx.device == torch.device("cpu") and rx.mesh.size == 2

@@ -8,9 +8,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "stm32f4_sdr_gps_torch")
 
 # the modules ported from the JAX package's weak-signal chain, capture
-# ingest, checkpoint, RTCM and command line
+# ingest, checkpoint, RTCM and command line, and its mesh and
+# multi-process runtime
 NEW_MODULES = ("track.aided_sync", "io.bits", "io.rtcm3", "signal.capture",
-               "runtime.checkpoint", "__main__")
+               "runtime.checkpoint", "__main__", "parallel.mesh",
+               "parallel.streaming", "runtime.mesh_receiver",
+               "runtime.multiprocess", "runtime.native",
+               "probes.multiprocess_run", "probes.mesh_gather")
 
 _PROBE = r"""
 import importlib, pkgutil, sys
