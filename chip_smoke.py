@@ -162,6 +162,42 @@ before the result line):
    per-process decode of 8 PRNs, and the distributed 29 s fix within
    150 m; a rank that exits non-zero or outlives its time limit fails
    the run.  Phase 17's records go into K1's entry of the kernels line.
+18. the reference scan on the card: ``entry_jnp_scan()`` (32 channels x
+   100 epochs of seed-0 noise through ``track_block`` with
+   ``in_kernel_scan=False``) against ``entry_jnp_scan(device="cpu")`` on
+   the same inputs under phase 3's rules; then ``Receiver.run`` with
+   ``TrackConfig(in_kernel_scan=False)`` on phase 4's capture: fix within
+   500 m, |vel| < 10 m/s, full ephemerides, and no launch of K1 or K2 (nor
+   a plain version's call); its fix error beside phase 4's through K1.
+   Meanwhile, in the background: native/ rebuilt with ``make -B`` (never a
+   library built on another machine) and phases 19-20's wire captures
+   generated, one ``native/capture_gen`` each, all at once;
+19. the firmware oracle (native/firmware_rx.cpp) against K1 on the card,
+   ``probes/firmware_parity.py``: the non-slow captures of
+   tests/test_firmware_parity.py (12 s, seed 11), test_master_parity.py
+   (38 s cold, seed 3) and test_parity_stress.py (``cn0_45``), each
+   through the oracle and the port's Receiver on the card with the
+   suite's own bars (nav bits equal on the 20 ms grid up to one polarity;
+   Doppler < 5 Hz, code < 0.32 chip; the cold bins within one 500 Hz bin;
+   relative pseudoranges in the master suite's light-ms classes, window
+   and overlap bounds; the stress point's piecewise bits and code-delay
+   trajectory), K1 on every tracking block and nothing else; then
+   tests/test_reference_format_e2e.py's 2.3 s PRN 19 capture to decoded
+   subframes;
+20. the streaming soak (``probes/soak.py``): 30 s of wire capture pushed
+   through the native ring at 2.0x real time into the Receiver on the
+   card, zero dropped epochs, all but at most 1000 epochs consumed, 4
+   channels tracking, K1 on every block, and what it decoded (each PRN's
+   subframe ledger, subframes and bits, every fix) equal to a direct
+   ``Receiver.run`` of the same capture on the card; its sustained
+   real-time factor, the ring's high-water mark, the consumer's stall and
+   its fixes (none on this capture, as for the JAX kernel: PERF.md);
+21. ``Profiler.device_trace`` around 3 warm ``process_block`` calls of
+   phase 4's main path: the card's busy share of the traced window (the
+   union of its kernel and memcpy intervals) and the top 5 device
+   operations by time, printed, not gated.  Phases 18-21's records go
+   into K1's entry of the kernels line, and their seconds into the
+   ``[phases]`` line.
 
 The fix-scenario captures are simulated on the host where their phase
 starts (phase 11's and 12's simulation times are printed, not counted in
@@ -180,10 +216,12 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -211,8 +249,6 @@ def card():
 
 
 def build():
-    from concurrent.futures import ThreadPoolExecutor
-
     from stm32f4_sdr_gps_torch.ops import kernel_lib
 
     libs = {"track_scan_cuda": kernel_lib.cuda_lib,
@@ -2035,6 +2071,271 @@ def mesh_phase(sc, scenario, fix_rr):
     return rec
 
 
+# ---------------------------------------------------------------- phases 18-21
+
+# the final fix on phase 4's capture of the reference scan on the CPU, in
+# each package (printed by RUN_SLOW=1 pytest -s tests/
+# test_torch_entry_jnp_scan.py::test_reference_scan_fix_matches_jax),
+# printed beside phase 18's card run
+REFSCAN_CPU_FIX_M = {"jax": 83.77, "port": 88.50}
+
+# phase 20's soak: 30 s of wire capture at twice real time (the JAX
+# package's round-5 pace, tests/test_soak_smoke.py:3-5)
+SOAK = dict(capture_s=30, rate_x=2.0, cn0=48.0, seed=9)
+
+
+def _prepare_native():
+    """Phases 19-20's native side, run in the background from phase 18
+    on: native/ rebuilt on this machine (make -B: never a library built
+    elsewhere), then the wire captures of the three parity suites and
+    the soak, one capture_gen each, all at once.  Returns {name: (words,
+    truth)} and the soak's capture directory."""
+    import tempfile
+
+    from stm32f4_sdr_gps_torch.probes import firmware_parity as fp
+    from stm32f4_sdr_gps_torch.probes import soak
+    from stm32f4_sdr_gps_torch.runtime import native
+
+    t0 = time.perf_counter()
+    subprocess.run(["make", "-B", "-s", "-C", native.NATIVE_DIR,
+                    "libsdr_native.so", "capture_gen"], check=True,
+                   capture_output=True, timeout=300)
+    build_s = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_native_")
+    with ThreadPoolExecutor(len(fp.SUITES) + 1) as pool:
+        jobs = {s: pool.submit(fp.generate, s, tmp) for s in fp.SUITES}
+        jobs["soak"] = pool.submit(
+            soak.capture, SOAK["capture_s"], SOAK["cn0"], SOAK["seed"], tmp)
+        caps = {s: j.result() for s, j in jobs.items()}
+    return {"captures": caps, "dir": tmp, "build_s": build_s,
+            "seconds": time.perf_counter() - t0}
+
+
+def reference_scan_phase(sc, k1_fix_err):
+    """Phase 18: the reference scan on the card.  ``entry_jnp_scan()`` on
+    the card against ``entry_jnp_scan(device="cpu")`` under _compare's
+    rules, then ``Receiver.run`` with ``in_kernel_scan=False`` on phase
+    4's capture to a fix within 500 m, |vel| < 10 m/s, with full
+    ephemerides and no launch of K1 or K2 (nor of a plain version) in
+    either.  Returns its record."""
+    import numpy as np
+    import torch
+
+    from stm32f4_sdr_gps_torch.config import TrackConfig
+    from stm32f4_sdr_gps_torch.entry import entry_jnp_scan
+    from stm32f4_sdr_gps_torch.ops.track_scan import state_from_track_state
+
+    fn, args = entry_jnp_scan()
+    if args[1].device.type != "cuda":
+        fail(f"entry_jnp_scan() chose {args[1].device}, not the card")
+    _reset_counts()
+    t0 = time.perf_counter()
+    st_k, out_k = fn(*args)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    counts = _counts()
+    if any(counts.values()):
+        fail(f"entry_jnp_scan on the card launched {counts}")
+    fn_c, args_c = entry_jnp_scan(device="cpu")
+    for a, b in zip(args, args_c):
+        same = (all(torch.equal(x.cpu(), y) for x, y in zip(a, b))
+                if isinstance(a, tuple) else torch.equal(a.cpu(), b))
+        if not same:
+            fail("entry_jnp_scan: the card's and the CPU's inputs differ")
+    t0 = time.perf_counter()
+    st_r, out_r = fn_c(*args_c)
+    cpu_s = time.perf_counter() - t0
+    err = _compare(state_from_track_state(st_k), out_k,
+                   state_from_track_state(st_r), out_r,
+                   "entry_jnp_scan 32 ch x 100 epochs, card vs CPU")
+    print(f"[refscan] entry_jnp_scan 32 ch x 100 epochs: card {card_s:.2f} s"
+          f", CPU {cpu_s:.2f} s; counts on the card {counts}")
+    report, rx, counts, tracked, wall = _run_receiver(
+        sc, TrackConfig(in_kernel_scan=False), "refscan")
+    if any(counts.values()):
+        fail(f"refscan: the reference-scan path launched {counts}")
+    sol = report.solutions[-1]
+    err_m = float(np.linalg.norm(sol.rr - sc.rr_true))
+    print(f"[refscan] fix {err_m:.2f} m on the reference scan on the card, "
+          f"beside phase 4's {k1_fix_err:.2f} m through K1, and the CPU's "
+          f"reference scans on this capture: the JAX package's "
+          f"{REFSCAN_CPU_FIX_M['jax']} m, the port's "
+          f"{REFSCAN_CPU_FIX_M['port']} m; {wall:.1f} s wall, track "
+          f"{rx.profiler.stages['track'].mean_s * 1e3:.1f} ms a block")
+    return {"entry_jnp_scan": {"max_abs_err": err, "card_s": card_s,
+                               "cpu_s": cpu_s},
+            "fix_error_m": err_m, "vel_mps": float(np.linalg.norm(sol.vel)),
+            "k1_fix_error_m": k1_fix_err, "wall_s": wall,
+            "tracked_epochs": tracked,
+            "track_ms_per_block": rx.profiler.stages["track"].mean_s * 1e3}
+
+
+def firmware_oracle_phase(native_caps):
+    """Phase 19: the firmware oracle against K1 on the card.  Each suite's
+    capture (generated in the background since phase 18) through the
+    oracle and the port's Receiver on the card (the default backend: K1
+    on every tracking block, no plain version, no K2), with the suite's
+    own bars (probes/firmware_parity.py); then the wire-format suite's
+    2.3 s PRN 19 capture to decoded subframes.  Returns its record."""
+    from stm32f4_sdr_gps_torch.ops import track_scan as ts
+    from stm32f4_sdr_gps_torch.probes import firmware_parity as fp
+    from stm32f4_sdr_gps_torch.runtime import native
+
+    if native.get_lib() is None:
+        fail("native library (native/libsdr_native.so) unavailable")
+    rec = {"native_build_s": native_caps["build_s"],
+           "native_prepare_s": native_caps["seconds"]}
+    for suite in [*fp.SUITES, "wire_format"]:
+        _reset_counts()
+        try:
+            r = fp.run_suite(suite, "cuda",
+                             capture=native_caps["captures"].get(suite))
+        except fp.ParityError as e:
+            fail(f"[oracle] {suite}: a bar failed: {e.args}")
+        counts = _counts()
+        rx = r.pop("receiver")
+        blocks = rx.profiler.stages["track"].calls
+        by_mode = dict(ts.track_scan_cuda.by_mode)
+        if (counts["track_scan"] != blocks or counts["track_scan_plain"]
+                or counts["epl"] or counts["epl_plain"]
+                or {m for m, _ in by_mode} != {"default"}):
+            fail(f"[oracle] {suite}: {counts}, K1 {_launched(by_mode)} for "
+                 f"{blocks} blocks (want K1 on every block and nothing else)")
+        r["launches"] = counts["track_scan"]
+        r["blocks"] = blocks
+        print(f"[oracle] {suite} on the card through K1 ({_launched(by_mode)}"
+              f"): every bar holds; {json.dumps(r, default=str)}")
+        rec[suite] = r
+    return rec
+
+
+def soak_phase(native_caps):
+    """Phase 20: the streaming soak on the card at SOAK's pace: zero
+    dropped epochs, all but at most 1000 epochs consumed, 4 channels
+    tracking, K1 on every block and nothing else; what it decoded (each
+    PRN's subframe ledger, subframes and bits, and every fix) equal to a
+    direct ``Receiver.run`` of the same capture on the card.  Its fixes
+    are printed: on this capture the JAX kernel makes none (PERF.md)."""
+    from stm32f4_sdr_gps_torch.config import ReceiverConfig
+    from stm32f4_sdr_gps_torch.probes import soak
+    from stm32f4_sdr_gps_torch.runtime import native
+    from stm32f4_sdr_gps_torch.runtime.receiver import Receiver
+    from stm32f4_sdr_gps_torch.signal.capture import reference_to_baseband
+
+    _reset_counts()
+    out = soak.run_soak(capture_s=SOAK["capture_s"], rate_x=SOAK["rate_x"],
+                        cn0=SOAK["cn0"], seed=SOAK["seed"], device="cuda",
+                        state_dir=native_caps["dir"])
+    counts = _counts()
+    print(f"[soak] {json.dumps(out)}")
+    print(f"[soak] {out['capture_s']:.0f} s at {out['rate_x']}x real time on "
+          f"the card: sustained {out['sustained_rt_x']:.2f}x, ring high-water"
+          f" {out['ring_high_water_ms']:.0f} of {out['ring_capacity_ms']} ms,"
+          f" consumer stall {out['consumer_stall_s']:.2f} s, dropped "
+          f"{out['dropped_epochs']} epochs, {out['fixes']} fixes; counts "
+          f"{counts}")
+    if not (out["ok"] and out["channels_tracking"] == 4):
+        fail(f"[soak] {out}")
+    if (counts["track_scan"] != out["blocks"] or counts["track_scan_plain"]
+            or counts["epl"] or counts["epl_plain"]):
+        fail(f"[soak] counts {counts} for {out['blocks']} blocks")
+    words, truth = native_caps["captures"]["soak"]
+    rx = Receiver(ReceiverConfig(prns=tuple(s["prn"] for s in truth["sats"]),
+                                 track_block_epochs=500))
+    rx.run(reference_to_baseband(native.unpack_bits16(words)))
+    direct = soak.ledger(rx)
+    if {k: out[k] for k in direct} != direct:
+        fail(f"[soak] the streamed run decoded {[out[k] for k in direct]}, "
+             f"a direct Receiver.run of the capture {direct}")
+    print(f"[soak] decoded exactly what a direct Receiver.run of the capture "
+          f"does: ledgers {direct['channels']}, "
+          f"{len(direct['fixes_ecef_m'])} fixes")
+    return {**out, "launches": counts["track_scan"]}
+
+
+def _busy_share(trace_path, window_name):
+    """From a Chrome trace: the window (the span of the host's user
+    annotation ``window_name``), the union of the card's kernel and
+    memcpy / memset intervals inside it, and the device operations' time
+    inside it by name (microseconds)."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    win = [e for e in events if e["name"] == window_name
+           and e.get("cat") == "user_annotation"]
+    if len(win) != 1:
+        fail(f"[trace] {len(win)} events named {window_name} in the trace")
+    lo = float(win[0]["ts"])
+    hi = lo + float(win[0]["dur"])
+    dev = sorted((max(float(e["ts"]), lo),
+                  min(float(e["ts"]) + float(e["dur"]), hi), e["name"])
+                 for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, lo
+    by_name = {}
+    for a, b, name in dev:
+        if b <= a:
+            continue
+        by_name[name] = by_name.get(name, 0.0) + (b - a)
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return hi - lo, busy, by_name
+
+
+def trace_phase(sc):
+    """Phase 21: Profiler.device_trace around 3 warm process_block calls of
+    phase 4's main path (K1 on the card); prints the card's busy share
+    of the window of those calls (a profiler annotation) and the top 5
+    device operations by time (not gated).  Returns its record."""
+    import tempfile
+
+    import torch
+
+    from stm32f4_sdr_gps_torch.config import ReceiverConfig
+    from stm32f4_sdr_gps_torch.runtime.receiver import Receiver
+
+    cfg = ReceiverConfig(prns=sc.prns, track_block_epochs=1000)
+    rx = Receiver(cfg)
+    spe = cfg.plan.samples_per_epoch
+    acq = cfg.acq.noncoherent_epochs
+    rx.acquire_all(sc.samples)
+    rx.start_tracking(sc.samples[acq * spe:], start_epoch=acq)
+    rx.epoch_cursor = acq
+    blocks = [sc.samples[(acq + 1000 * k) * spe:(acq + 1000 * (k + 1)) * spe]
+              for k in range(5)]
+    for b in blocks[:2]:                  # warm: the first blocks' calls
+        rx.process_block(b)
+    torch.cuda.synchronize()
+    _reset_counts()
+    with tempfile.TemporaryDirectory() as logdir:
+        with rx.profiler.device_trace(logdir):
+            with torch.profiler.record_function("chip_smoke.blocks"):
+                t0 = time.perf_counter()
+                for b in blocks[2:]:
+                    rx.process_block(b)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        window, busy, by_name = _busy_share(
+            os.path.join(logdir, "trace.json"), "chip_smoke.blocks")
+    counts = _counts()
+    if counts["track_scan"] != 3:
+        fail(f"[trace] 3 traced blocks launched {counts}")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    share = busy / window if window > 0 else None
+    print(f"[trace] 3 warm process_block calls of the main path: window "
+          f"{window / 1e3:.2f} ms, the card busy {busy / 1e3:.2f} ms ("
+          + (f"{100 * share:.1f} %" if by_name else "no device event in the "
+             "trace: not measured")
+          + f"), {wall * 1e3:.1f} ms host wall with the profiler on; top 5 "
+          f"device operations (ms): "
+          f"{ {n[:60]: round(t / 1e3, 4) for n, t in top} }")
+    return {"window_ms": window / 1e3, "busy_ms": busy / 1e3,
+            "busy_share": share if by_name else None,
+            "top5_device_ms": {n: t / 1e3 for n, t in top},
+            "launches": counts["track_scan"], "wall_ms": wall * 1e3}
+
+
 def main():
     sys.path.insert(0, HERE)
     import stm32f4_sdr_gps_torch
@@ -2086,7 +2387,28 @@ def main():
     t0 = time.perf_counter()
     mesh = mesh_phase(sc, scenario, fix_rr)
     phase_s[17] = time.perf_counter() - t0
-    print(f"[phases] seconds of phases 11-17: "
+    # phases 19-20's native build and captures run meanwhile
+    prep_pool = ThreadPoolExecutor(1)
+    prep = prep_pool.submit(_prepare_native)
+    t0 = time.perf_counter()
+    refscan = reference_scan_phase(sc, fix_err)
+    phase_s[18] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native_caps = prep.result()
+    prep_pool.shutdown()
+    print(f"[oracle] native/ rebuilt in {native_caps['build_s']:.1f} s, the "
+          f"captures ready {native_caps['seconds']:.1f} s after phase 18 "
+          f"began ({time.perf_counter() - t0:.1f} s waited)")
+    oracle = firmware_oracle_phase(native_caps)
+    phase_s[19] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    soak_rec = soak_phase(native_caps)
+    shutil.rmtree(native_caps["dir"])
+    phase_s[20] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trace = trace_phase(sc)
+    phase_s[21] = time.perf_counter() - t0
+    print(f"[phases] seconds of phases 11-21: "
           f"{ {k: round(v, 1) for k, v in phase_s.items()} }")
     src = "stm32f4_sdr_gps_torch/csrc/"
     k2_b4, k2_b32 = k2_bound(4), k2_bound(32)
@@ -2141,6 +2463,10 @@ def main():
         "acquisition_32prn_ms": acq_ms,
         "wire_format": wire,
         "mesh": mesh,
+        "reference_scan_path": refscan,
+        "firmware_oracle": oracle,
+        "soak": soak_rec,
+        "trace": trace,
     }, {
         "name": "epl",
         "route": "cuda",

@@ -6,13 +6,17 @@
   state, followed by the on-device block digest — the program
   ``Receiver.process_block`` runs per block
   (runtime.receiver._track_and_digest_carried).
+* :func:`entry_jnp_scan` — the reference backend as an explicit variant:
+  32 channels x 100 epochs through the fractional-phase reference scan
+  (``TrackConfig(in_kernel_scan=False)``, the same math without the
+  kernel).
 * :func:`dryrun_multichip` — the whole sharded step on an n-position
   mesh over one device repeated: sharded acquisition, the halo, the
   channel-sharded reference scan and tracking-scan kernel, and the
   MeshReceiver to a fix held to the single-process Receiver.
 
-Both run on the card unless the caller asks for the CPU, and raise where
-there is no card.
+All three run on the card unless the caller asks for the CPU, and raise
+where there is no card.
 """
 
 from __future__ import annotations
@@ -25,17 +29,16 @@ from .ops.epl import upsampled_code_doubled
 from .ops.track_scan import state_from_track_state
 from .runtime.receiver import _track_and_digest_carried
 from .signal.ca_code import ca_table_bipolar
+from .track.scan import track_block
 from .track.state import init_state
 from .utils.device import card_or_cpu
 
 
-def entry(device="cuda", num_channels: int = 32, num_epochs: int = 96):
-    """(fn, example_args): ``fn(ps, epochs, u2) -> (ps2, track_state,
-    digest)`` with the arguments made from seed 0 on ``device``."""
-    device = card_or_cpu(device, "entry")
-    plan = BASEBAND_PLAN
-    cfg = TrackConfig(in_kernel_scan=True)
-    s = plan.samples_per_epoch
+def _setup(num_channels: int, num_epochs: int, cfg: TrackConfig, device):
+    """(state, epochs, prns) made from seed 0 on ``device``, drawn in the
+    JAX package's order: the noise epochs, then the code phases, then the
+    Dopplers."""
+    s = BASEBAND_PLAN.samples_per_epoch
     rng = np.random.default_rng(0)
     epochs = torch.as_tensor(
         (rng.standard_normal((num_epochs, s))
@@ -48,14 +51,41 @@ def entry(device="cuda", num_channels: int = 32, num_epochs: int = 96):
         window=cfg.pll_check_window,
         device=device,
     )
-    u2 = torch.as_tensor(upsampled_code_doubled(
-        ca_table_bipolar([(i % 32) + 1 for i in range(num_channels)])),
-        device=device)
+    return state, epochs, [(i % 32) + 1 for i in range(num_channels)]
+
+
+def entry(device="cuda", num_channels: int = 32, num_epochs: int = 96):
+    """(fn, example_args): ``fn(ps, epochs, u2) -> (ps2, track_state,
+    digest)`` with the arguments made from seed 0 on ``device``."""
+    device = card_or_cpu(device, "entry")
+    plan = BASEBAND_PLAN
+    cfg = TrackConfig(in_kernel_scan=True)
+    state, epochs, prns = _setup(num_channels, num_epochs, cfg, device)
+    u2 = torch.as_tensor(upsampled_code_doubled(ca_table_bipolar(prns)),
+                         device=device)
 
     def fn(ps, epochs, u2):
         return _track_and_digest_carried(ps, epochs, u2, plan, cfg, 100, True)
 
     return fn, (state_from_track_state(state), epochs, u2)
+
+
+def entry_jnp_scan(device="cuda", num_channels: int = 32,
+                   num_epochs: int = 100):
+    """(fn, example_args): ``fn(state, epochs, table) -> (new_state,
+    outputs)``, ``track_block`` through the reference scan (explicitly
+    ``in_kernel_scan=False``, which the card would otherwise route to the
+    kernel), with the arguments made from seed 0 on ``device``."""
+    device = card_or_cpu(device, "entry_jnp_scan")
+    plan = BASEBAND_PLAN
+    cfg = TrackConfig(in_kernel_scan=False)
+    state, epochs, prns = _setup(num_channels, num_epochs, cfg, device)
+    table = torch.as_tensor(ca_table_bipolar(prns), device=device)
+
+    def fn(state, epochs, table):
+        return track_block(state, epochs, table, plan, cfg)
+
+    return fn, (state, epochs, table)
 
 
 def dryrun_multichip(n_shards: int, device="cuda") -> dict:

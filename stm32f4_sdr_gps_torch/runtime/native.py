@@ -2,35 +2,67 @@
 the port's own copy of the JAX package's runtime/native.py (numpy and
 ctypes only; the fallbacks use the port's signal/capture.py).
 
-Builds the library on demand with the repo Makefile (g++); all entry
-points degrade to NumPy fallbacks when the toolchain is unavailable, so
-the framework stays importable anywhere.
+Builds the library on demand with the repo Makefile (g++).  Where the
+toolchain is unavailable only the bit codecs degrade: ``unpack_bits16``
+and ``pack_bits16`` fall back to NumPy, which is exact.  What the
+library alone provides reports its absence: the firmware oracles
+(``correlate_1bit_oracle``, ``firmware_receiver_run``,
+``firmware_master_run``) return None, and ``NativeRing`` raises.  The
+wire-format generator ``native/capture_gen`` is built and run by
+:func:`capture_gen`, which raises where it cannot be.  The module itself
+imports anywhere.
 """
 
 from __future__ import annotations
 
 import ctypes
+import json
 import os
 import subprocess
 from typing import Optional
 
 import numpy as np
 
-_NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native")
-_LIB_PATH = os.path.abspath(os.path.join(_NATIVE_DIR, "libsdr_native.so"))
+NATIVE_DIR = os.path.abspath(
+    os.path.join(os.path.dirname(__file__), "..", "..", "native"))
+_LIB_PATH = os.path.join(NATIVE_DIR, "libsdr_native.so")
 
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
 
 
+def _make(*targets: str) -> None:
+    """Bring TARGETS in native/ up to date with its Makefile, one of this
+    package's processes at a time (an exclusive lock on
+    native/.build.lock).  A stale target is built in a scratch directory
+    beside the sources and moved into place in one rename: no process
+    loads or runs a file this function is still writing."""
+    import fcntl
+    import tempfile
+
+    with open(os.path.join(NATIVE_DIR, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        stale = [t for t in targets if subprocess.run(
+            ["make", "-q", t], cwd=NATIVE_DIR,
+            capture_output=True).returncode != 0]
+        if not stale:
+            return
+        with tempfile.TemporaryDirectory(prefix=".build-",
+                                         dir=NATIVE_DIR) as tmp:
+            for f in os.listdir(NATIVE_DIR):
+                if f.endswith(".cpp"):
+                    os.symlink(os.path.join(NATIVE_DIR, f),
+                               os.path.join(tmp, f))
+            subprocess.run(
+                ["make", "-s", "-f", os.path.join(NATIVE_DIR, "Makefile"),
+                 *stale], cwd=tmp, check=True, capture_output=True)
+            for t in stale:
+                os.replace(os.path.join(tmp, t), os.path.join(NATIVE_DIR, t))
+
+
 def _build() -> bool:
     try:
-        subprocess.run(
-            ["make", "-s", "libsdr_native.so"],
-            cwd=os.path.abspath(_NATIVE_DIR),
-            check=True,
-            capture_output=True,
-        )
+        _make("libsdr_native.so")
         return True
     except Exception:
         return False
@@ -293,3 +325,22 @@ class NativeRing:
     @property
     def available(self) -> int:
         return self._lib.sdr_ring_available(self._h)
+
+
+def capture_gen(directory: str, name: str = "cap", **flags):
+    """Build (if needed) and run the independent wire-format generator
+    ``native/capture_gen`` with ``--flag value`` for each keyword
+    (underscores become dashes), writing ``name.bin`` and
+    ``name.truth.json`` into ``directory``.  Returns (uint16 SPI words,
+    truth dict); raises CalledProcessError where make or the generator
+    fails."""
+    _make("capture_gen")
+    cap = os.path.join(directory, f"{name}.bin")
+    truth = os.path.join(directory, f"{name}.truth.json")
+    args = [os.path.join(NATIVE_DIR, "capture_gen"), "--out", cap,
+            "--truth", truth]
+    for k, v in flags.items():
+        args += [f"--{k.replace('_', '-')}", str(v)]
+    subprocess.run(args, check=True, capture_output=True)
+    with open(truth) as f:
+        return np.fromfile(cap, dtype=np.uint16), json.load(f)

@@ -4,7 +4,8 @@ The firmware's only profiling primitive is the DWT cycle counter
 (``delay_us_timer.c``), used to timestamp IRQs, bound the snapshot copy
 window and measure solver slices with a >900 us budget alarm
 (solving.c:119-138).  Host equivalents: wall-clock stage timers with
-budget alarms and a samples/s throughput counter.
+budget alarms and a samples/s throughput counter; on the card, a
+``torch.profiler`` trace of a block (:meth:`Profiler.device_trace`).
 """
 
 from __future__ import annotations
@@ -88,3 +89,22 @@ class Profiler:
                 f"{st.total_s:>8.2f} {st.overruns:>8}"
             )
         return "\n".join(rows)
+
+    @contextlib.contextmanager
+    def device_trace(self, logdir: str):
+        """Capture a ``torch.profiler`` trace around a block: the CPU's
+        activity, and the card's where CUDA is available.  On exit the
+        trace is written into ``logdir`` as a Chrome trace
+        (``trace.json``)."""
+        import os
+
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(ProfilerActivity.CUDA)
+        os.makedirs(logdir, exist_ok=True)
+        with profile(activities=activities) as prof:
+            yield
+        prof.export_chrome_trace(os.path.join(logdir, "trace.json"))

@@ -3,9 +3,10 @@ CPU, and raise where there is no card: acquisition (the FFT cube, the
 epoch vote, the host fine-Doppler search), the DFT tables, the pre-track
 code refinement, the tracking state and its conversions from the JAX
 package's, the code FFT table, the wire-format conditioner, the
-checkpoint loader, the Receiver and entry() (the last two also in
-test_torch_receiver.py; the CLI in test_torch_cli.py), and the mesh,
-MeshReceiver, dryrun_multichip and the multi-process probe.  On the CPU
+checkpoint loader, the Receiver, entry() (the last two also in
+test_torch_receiver.py; the CLI in test_torch_cli.py) and
+entry_jnp_scan(), and the mesh, MeshReceiver, dryrun_multichip and the
+multi-process probe (the soak in test_torch_soak.py).  On the CPU
 each call passes device="cpu" (CPU devices to the mesh)."""
 
 import numpy as np
@@ -17,7 +18,8 @@ from stm32f4_sdr_gps_torch.acquire.engine import (acquire,
                                                   acquire_epoch_vote,
                                                   refine_doppler)
 from stm32f4_sdr_gps_torch.config import BASEBAND_PLAN, ReceiverConfig
-from stm32f4_sdr_gps_torch.entry import dryrun_multichip, entry
+from stm32f4_sdr_gps_torch.entry import (dryrun_multichip, entry,
+                                         entry_jnp_scan)
 from stm32f4_sdr_gps_torch.ops.correlate import (code_fft_conj,
                                                  dft_tables_device)
 from stm32f4_sdr_gps_torch.parallel.mesh import make_mesh
@@ -57,6 +59,8 @@ CALLS = {
     "code_fft_conj": lambda **kw: code_fft_conj([1, 2], BASEBAND_PLAN, **kw),
     "Receiver": lambda **kw: Receiver(ReceiverConfig(prns=(1,)), **kw),
     "entry": lambda **kw: entry(num_channels=2, num_epochs=2, **kw),
+    "entry_jnp_scan": lambda **kw: entry_jnp_scan(num_channels=2,
+                                                  num_epochs=2, **kw),
     "acquire_epoch_vote": lambda **kw: acquire_epoch_vote(
         _X, [1], BASEBAND_PLAN, num_epochs=2, **kw),
     "refine_doppler": lambda **kw: refine_doppler(
