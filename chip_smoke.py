@@ -195,9 +195,27 @@ before the result line):
 21. ``Profiler.device_trace`` around 3 warm ``process_block`` calls of
    phase 4's main path: the card's busy share of the traced window (the
    union of its kernel and memcpy intervals) and the top 5 device
-   operations by time, printed, not gated.  Phases 18-21's records go
-   into K1's entry of the kernels line, and their seconds into the
-   ``[phases]`` line.
+   operations by time, printed, not gated;
+22. the receiver under stress (``probes/stress.py``, the JAX package's
+   robustness suites): every scenario through the default path on the
+   card (K1) under its suite's bars: the RF-impaired compressed-time
+   Receiver, the sub-epoch bit edges, eight channels, the Doppler ramp,
+   dropout and noise burst (each also held to K1's plain version on the
+   CPU under _compare's rules, with no nav bit required), the coherent
+   bit and PLL claims, K1 on every block and nothing else; then the
+   29 s impaired cold start with one K1 launch a block: a fix within
+   700 m with every ephemeris set full, or else exactly the reference's
+   outcome on the other side of PRN 15's fade (its bit split at epochs
+   24252 / 24267, the other sets full, no fix: ROADMAP Queue 3);
+23. ``probes/wire_e2e.py`` at tools/tpu_e2e.py's defaults on the card: the
+   29 s capture_gen wire capture uploaded and conditioned on the card a
+   256-epoch chunk at a time, cold start and every block from device
+   memory, the last fix within 500 m, every block a CUDA tensor, no
+   samples copied from the host (``epochs_on.host_copies``), K1 on every
+   block.  Phase 23's capture and phase 22's 29 s fix_scenario are made
+   in the background from phase 18 on (the fix_scenario in a process of
+   its own).  Phases 18-23's records go into K1's entry of the kernels
+   line, and their seconds into the ``[phases]`` line.
 
 The fix-scenario captures are simulated on the host where their phase
 starts (phase 11's and 12's simulation times are printed, not counted in
@@ -417,7 +435,7 @@ def _median_ms(fn, reps, calls):
 MARGINAL_IP = 0.5
 
 
-def _compare(st_k, out_k, st_r, out_r, label, coherent=False):
+def _compare(st_k, out_k, st_r, out_r, label, coherent=False, bits=True):
     """Kernel (k) vs plain version (r) on one run of a tracking loop: the
     tolerances of tests/test_pallas_scan.py:68-117 on the floats and exact
     integer decisions, for every channel up to its first marginal
@@ -429,7 +447,9 @@ def _compare(st_k, out_k, st_r, out_r, label, coherent=False):
     last bit boundary, lies within n * MARGINAL_IP of zero is such a
     decision too; the run must start at epoch 0.  ``st_*`` are final
     ScanStates (i32 planes and watchdog window), ``out_*`` TrackOutputs
-    with (T, C) leaves.  Returns the max |kernel - plain| over the
+    with (T, C) leaves; ``bits=False`` for a scenario that carries no
+    data bits (no nav bit is then required).  Returns the max |kernel -
+    plain| over the
     compared outputs (ip and qp dominate: correlator units, the
     2046-sample sums of a 48 dBHz signal run to thousands)."""
     import numpy as np
@@ -490,10 +510,10 @@ def _compare(st_k, out_k, st_r, out_r, label, coherent=False):
         if not np.array_equal(a.cpu().numpy()[:, whole],
                               b.cpu().numpy()[:, whole]):
             fail(f"{label}: final {name} differs")
-    bits = int(r["bit_ready"][valid].sum())
-    if bits == 0:
+    n_bits = int(r["bit_ready"][valid].sum())
+    if bits and n_bits == 0:
         fail(f"{label}: the scenario produced no nav bit")
-    print(f"[compare] {label}: {bits} bits, integer decisions equal; "
+    print(f"[compare] {label}: {n_bits} bits, integer decisions equal; "
           f"channels with a marginal sign decision (compared up to it): "
           f"{ {int(c): int(stop[c]) for c in np.nonzero(~whole)[0]} }; "
           + (f"coherent bit sums there (epoch, kernel, plain) {bit_sums}; "
@@ -626,8 +646,10 @@ K1_MODES = {
 
 
 def _reset_counts():
-    """Every kernel's launch count and every plain version's call count
+    """Every kernel's launch count, every plain version's call count and
+    the count of samples copied from the host (``epochs_on.host_copies``)
     to 0."""
+    from stm32f4_sdr_gps_torch.acquire.engine import epochs_on
     from stm32f4_sdr_gps_torch.ops import epl
     from stm32f4_sdr_gps_torch.ops import track_scan as ts
     from stm32f4_sdr_gps_torch.probes import corr_bank as cb
@@ -635,6 +657,7 @@ def _reset_counts():
     for mod, _, _ in _roll_probes():
         for fn in set(mod.KERNELS.values()):
             fn.launches = 0
+    epochs_on.host_copies = 0
     ts.track_scan_cuda.launches = 0
     ts.track_scan_cuda.by_mode.clear()
     ts.track_scan_reference.calls = 0
@@ -2084,12 +2107,38 @@ REFSCAN_CPU_FIX_M = {"jax": 83.77, "port": 88.50}
 SOAK = dict(capture_s=30, rate_x=2.0, cn0=48.0, seed=9)
 
 
-def _prepare_native():
-    """Phases 19-20's native side, run in the background from phase 18
-    on: native/ rebuilt on this machine (make -B: never a library built
-    elsewhere), then the wire captures of the three parity suites and
-    the soak, one capture_gen each, all at once.  Returns {name: (words,
-    truth)} and the soak's capture directory."""
+# phase 23's wire capture: tools/tpu_e2e.py's defaults
+WIRE = dict(cib=20, duration_ms=29_000, cn0=48, seed=5)
+
+
+def _impaired_fix_capture(directory):
+    """Phase 22's 29 s impaired fix_scenario, simulated in a process of
+    its own (the main process keeps its cores for the card's phases);
+    returns {"samples", "rr_true", "prns", "seconds"}."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    path = os.path.join(directory, "impaired_fix.npz")
+    subprocess.run(
+        [sys.executable, "-c", "import sys; from stm32f4_sdr_gps_torch."
+         "probes import stress; stress.save_impaired_fix(sys.argv[1])",
+         path], cwd=HERE, check=True, capture_output=True, timeout=900)
+    with np.load(path) as z:
+        rec = {"samples": z["samples"], "rr_true": z["rr_true"],
+               "prns": tuple(int(p) for p in z["prns"])}
+    os.remove(path)
+    return {**rec, "seconds": time.perf_counter() - t0}
+
+
+def _prepare_native(pool):
+    """Phases 19-20's and 22-23's inputs, made in the background from phase
+    18 on: native/ rebuilt on this machine (make -B: never a library built
+    elsewhere), then the wire captures of the three parity suites, the
+    soak and phase 23, one capture_gen each, and phase 22's impaired
+    fix_scenario, all at once in ``pool``.  Returns when phases 19-20's
+    captures are ready: {name: (words, truth)} under "captures", and the
+    futures of phase 23's capture ("wire") and phase 22's ("impaired_fix")
+    under "later"."""
     import tempfile
 
     from stm32f4_sdr_gps_torch.probes import firmware_parity as fp
@@ -2102,13 +2151,14 @@ def _prepare_native():
                    capture_output=True, timeout=300)
     build_s = time.perf_counter() - t0
     tmp = tempfile.mkdtemp(prefix="chip_smoke_native_")
-    with ThreadPoolExecutor(len(fp.SUITES) + 1) as pool:
-        jobs = {s: pool.submit(fp.generate, s, tmp) for s in fp.SUITES}
-        jobs["soak"] = pool.submit(
-            soak.capture, SOAK["capture_s"], SOAK["cn0"], SOAK["seed"], tmp)
-        caps = {s: j.result() for s, j in jobs.items()}
+    later = {"wire": pool.submit(native.capture_gen, tmp, "wire_e2e", **WIRE),
+             "impaired_fix": pool.submit(_impaired_fix_capture, tmp)}
+    jobs = {s: pool.submit(fp.generate, s, tmp) for s in fp.SUITES}
+    jobs["soak"] = pool.submit(
+        soak.capture, SOAK["capture_s"], SOAK["cn0"], SOAK["seed"], tmp)
+    caps = {s: j.result() for s, j in jobs.items()}
     return {"captures": caps, "dir": tmp, "build_s": build_s,
-            "seconds": time.perf_counter() - t0}
+            "seconds": time.perf_counter() - t0, "later": later}
 
 
 def reference_scan_phase(sc, k1_fix_err):
@@ -2336,6 +2386,150 @@ def trace_phase(sc):
             "launches": counts["track_scan"], "wall_ms": wall * 1e3}
 
 
+# ---------------------------------------------------------------- phases 22-23
+
+def _k1_only(label, counts, launches):
+    """Fails unless ``counts`` holds ``launches`` K1 launches and no other
+    kernel launch or plain-version call."""
+    if (counts["track_scan"] != launches or counts["track_scan_plain"]
+            or counts["epl"] or counts["epl_plain"]):
+        fail(f"[stress] {label}: counts {counts}, want {launches} K1 "
+             "launches and nothing else")
+
+
+def stress_phase(impaired_fix):
+    """Phase 22: every scenario of probes/stress.py through the port's
+    default path on the card (the tracking-scan kernel K1) under its
+    suite's bars; the three dynamics runs also held to K1's plain version
+    on the CPU under _compare's rules; the 29 s impaired cold start to a
+    fix with one K1 launch a block.  Returns its record."""
+    import numpy as np
+    import torch
+
+    from stm32f4_sdr_gps_torch.ops.track_scan import state_from_track_state
+    from stm32f4_sdr_gps_torch.probes import stress
+
+    rec = {"chirp_truth_diff": stress.check_chirp_truth()}
+
+    def timed(label, fn):
+        _reset_counts()
+        t0 = time.perf_counter()
+        try:
+            out = fn()
+        except stress.StressError as e:
+            fail(f"[stress] {label}: a bar failed: {e.args}")
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, _counts()
+
+    for name, fn in (("impairments", stress.run_impairments),
+                     ("boundary", stress.run_boundary),
+                     ("eight", stress.run_eight)):
+        (report, rx, bars), secs, counts = timed(name, lambda: fn("cuda"))
+        blocks = rx.profiler.stages["track"].calls
+        _k1_only(name, counts, blocks)
+        rec[name] = {"launches": counts["track_scan"], "seconds": secs,
+                     "bars": {str(k): v for k, v in
+                              (bars.items() if isinstance(bars, dict)
+                               else enumerate(bars))}}
+        print(f"[stress] {name}: every bar holds through K1 on the card; "
+              f"{counts['track_scan']} launches, {secs:.1f} s; {bars}")
+
+    for name in stress.DYNAMICS:
+        (st_k, out_k, bars), secs, counts = timed(
+            name, lambda: stress.run_dynamics(name, "cuda"))
+        _k1_only(name, counts, 1)
+        st_r, out_r, _ = stress.run_dynamics(name, "cpu", in_kernel_scan=True)
+        err = _compare(state_from_track_state(st_k), out_k,
+                       state_from_track_state(st_r), out_r,
+                       f"stress dynamics {name}, K1 vs plain", bits=False)
+        rec[name] = {"launches": 1, "seconds": secs, "bars": bars,
+                     "max_abs_err": err}
+        print(f"[stress] dynamics {name}: the bar holds through K1 on the "
+              f"card; 1 launch, {secs:.1f} s; {bars}")
+
+    (_, pll), secs, counts = timed("coherent",
+                                   lambda: stress.run_coherent("cuda"))
+    _k1_only("coherent", counts, len(stress.COHERENT_RUNS))
+    rec["coherent"] = {"launches": counts["track_scan"], "seconds": secs,
+                       "pll": pll}
+    print(f"[stress] coherent claims: every claim holds through K1 on the "
+          f"card; {counts['track_scan']} launches, {secs:.1f} s; PLL runs "
+          f"(errors, bits, Doppler p95 Hz) {pll}")
+
+    cfg = stress.impaired_fix_config(impaired_fix["prns"])
+    bit_epochs = {}
+    (report, rx), secs, counts = timed(
+        "impaired_fix", lambda: stress.run_receiver(
+            impaired_fix["samples"], cfg, bit_epochs=bit_epochs))
+    blocks = rx.profiler.stages["track"].calls
+    _k1_only("impaired_fix", counts, blocks)
+    if blocks != 29:
+        fail(f"[stress] impaired_fix: {blocks} blocks, want 29")
+    track_ms = rx.profiler.stages["track"].mean_s * 1e3
+    ledger = {ch.prn: (ch.subframe_count, ch.eph.has_full_set,
+                       ch.bit_count) for ch in report.channels}
+    fix = {"launches": counts["track_scan"], "seconds": secs,
+           "solutions": len(report.solutions), "track_ms_per_block": track_ms,
+           "simulate_s": impaired_fix["seconds"],
+           "ledger_subframes_full_bits": {str(k): v for k, v in
+                                          ledger.items()}}
+    try:
+        if all(ch.eph.has_full_set for ch in report.channels):
+            err, vel = stress.check_impaired_fix(report,
+                                                 impaired_fix["rr_true"])
+            fix.update(outcome="fix", fix_error_m=err, vel_mps=vel)
+            said = (f"fix {err:.2f} m (bar {stress.FIX_BAR_M:.0f}), |vel| "
+                    f"{vel:.3f} m/s, {len(report.solutions)} solutions")
+        else:
+            # the reference's own outcome on the other side of PRN 15's
+            # fade (ROADMAP Queue 3, "The impaired fix turns on one fade")
+            stress.check_fade_outcome(report, bit_epochs)
+            fix["outcome"] = "fade"
+            said = (f"no fix: PRN {stress.FADE_PRN}'s bit split at epochs "
+                    f"{stress.FADE_SPLIT} on its fade, subframe 3 lost, the "
+                    "other channels' sets full: the outcome of the JAX "
+                    "Pallas kernel on its full-readback path")
+    except stress.StressError as e:
+        fail(f"[stress] impaired_fix: {e.args}; ledger {ledger}")
+    rec["impaired_fix"] = fix
+    print(f"[stress] impaired 29 s cold start: {said}; ledger (subframes, "
+          f"full set, bits) {ledger}; {counts['track_scan']} K1 launches "
+          f"for {blocks} blocks; {secs:.2f} s wall, track {track_ms:.3f} ms "
+          "a block")
+    print(rx.profiler.report())
+    return rec
+
+
+def wire_phase(words, truth):
+    """Phase 23: probes/wire_e2e.py at tools/tpu_e2e.py's defaults on the
+    card: the last fix within 500 m, every block a CUDA tensor conditioned
+    on the card, no samples copied from the host (``epochs_on``'s numpy
+    branch never taken), K1 on every block and nothing else.  Returns the
+    run's result."""
+    from stm32f4_sdr_gps_torch.acquire.engine import epochs_on
+    from stm32f4_sdr_gps_torch.probes import wire_e2e
+
+    _reset_counts()
+    out, rx = wire_e2e.run(words, truth, cib=WIRE["cib"])
+    counts = _counts()
+    print(f"[wire] {json.dumps(out)}")
+    if rx.device.type != "cuda":
+        fail(f"[wire] the receiver ran on {rx.device}")
+    if not out["pass"]:
+        fail(f"[wire] no pass: {out}")
+    if out["blocks_on_device"] != out["blocks"] or epochs_on.host_copies:
+        fail(f"[wire] {out['blocks_on_device']} of {out['blocks']} blocks "
+             f"were CUDA tensors; {epochs_on.host_copies} host copies")
+    _k1_only("wire", counts, out["blocks"])
+    print(f"[wire] {WIRE['duration_ms'] / 1e3:.0f} s wire capture to a fix "
+          f"on the card: last fix {out['fix_error_m_last']:.2f} m, "
+          f"{out['blocks']} blocks, every one a CUDA tensor and through K1, "
+          f"0 host copies; cold start {out['cold_start_s']:.2f} s, upload + "
+          f"conditioning {out['upload_s']:.3f} s in {out['uploads']} chunks, "
+          f"sustained {out['sustained_rt_x']:.1f}x real time")
+    return {**out, "launches": counts["track_scan"]}
+
+
 def main():
     sys.path.insert(0, HERE)
     import stm32f4_sdr_gps_torch
@@ -2387,15 +2581,16 @@ def main():
     t0 = time.perf_counter()
     mesh = mesh_phase(sc, scenario, fix_rr)
     phase_s[17] = time.perf_counter() - t0
-    # phases 19-20's native build and captures run meanwhile
-    prep_pool = ThreadPoolExecutor(1)
-    prep = prep_pool.submit(_prepare_native)
+    # phases 19-20's and 22-23's native build and captures run meanwhile
+    from stm32f4_sdr_gps_torch.probes import firmware_parity as fp
+
+    prep_pool = ThreadPoolExecutor(len(fp.SUITES) + 4)
+    prep = prep_pool.submit(_prepare_native, prep_pool)
     t0 = time.perf_counter()
     refscan = reference_scan_phase(sc, fix_err)
     phase_s[18] = time.perf_counter() - t0
     t0 = time.perf_counter()
     native_caps = prep.result()
-    prep_pool.shutdown()
     print(f"[oracle] native/ rebuilt in {native_caps['build_s']:.1f} s, the "
           f"captures ready {native_caps['seconds']:.1f} s after phase 18 "
           f"began ({time.perf_counter() - t0:.1f} s waited)")
@@ -2403,12 +2598,23 @@ def main():
     phase_s[19] = time.perf_counter() - t0
     t0 = time.perf_counter()
     soak_rec = soak_phase(native_caps)
-    shutil.rmtree(native_caps["dir"])
     phase_s[20] = time.perf_counter() - t0
     t0 = time.perf_counter()
     trace = trace_phase(sc)
     phase_s[21] = time.perf_counter() - t0
-    print(f"[phases] seconds of phases 11-21: "
+    t0 = time.perf_counter()
+    later = {k: f.result() for k, f in native_caps["later"].items()}
+    prep_pool.shutdown()
+    shutil.rmtree(native_caps["dir"])
+    print(f"[stress] the wire capture and the impaired fix_scenario ready "
+          f"({time.perf_counter() - t0:.1f} s waited; the fix_scenario "
+          f"simulated in {later['impaired_fix']['seconds']:.1f} s)")
+    stress_rec = stress_phase(later.pop("impaired_fix"))
+    phase_s[22] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wire_rec = wire_phase(*later.pop("wire"))
+    phase_s[23] = time.perf_counter() - t0
+    print(f"[phases] seconds of phases 11-23: "
           f"{ {k: round(v, 1) for k, v in phase_s.items()} }")
     src = "stm32f4_sdr_gps_torch/csrc/"
     k2_b4, k2_b32 = k2_bound(4), k2_bound(32)
@@ -2467,6 +2673,8 @@ def main():
         "firmware_oracle": oracle,
         "soak": soak_rec,
         "trace": trace,
+        "stress": stress_rec,
+        "wire_e2e": wire_rec,
     }, {
         "name": "epl",
         "route": "cuda",

@@ -294,16 +294,29 @@ def apply_doppler_hints(power, prns, bins, doppler_hints_hz, cfg):
     return power * torch.as_tensor(keep, device=power.device)[:, :, None]
 
 
-def epochs_on(samples: np.ndarray, e: int, s: int, device) -> torch.Tensor:
+def epochs_on(samples, e: int, s: int, device) -> torch.Tensor:
     """The first ``e`` epochs of ``samples`` as an (e, S) complex64 tensor
-    on ``device``: one host-to-device copy."""
+    on ``device``.
+
+    ``samples`` is a flat numpy array or a flat ``torch.Tensor``.  A numpy
+    array takes one host-to-device copy (counted in ``host_copies``).  A
+    complex64 tensor already on ``device`` is used in place: the result
+    is a view of it, with no copy.  Any other tensor is cast to complex64
+    and moved to ``device`` explicitly, as the numpy path casts."""
+    if isinstance(samples, torch.Tensor):
+        return samples[: e * s].reshape(e, s).to(device=device,
+                                                 dtype=torch.complex64)
+    epochs_on.host_copies += 1
     return torch.as_tensor(
         np.ascontiguousarray(samples[: e * s].reshape(e, s),
                              dtype=np.complex64), device=device)
 
 
+epochs_on.host_copies = 0
+
+
 def acquire(
-    samples: np.ndarray,
+    samples,
     prns,
     plan: SignalPlan = BASEBAND_PLAN,
     cfg: AcqConfig = AcqConfig(),
@@ -369,7 +382,7 @@ def _acquire_fused(epochs, cfc, rot, bins, keep, dft, coherent: int,
 
 
 def refine_doppler(
-    samples: np.ndarray,
+    samples,
     prn: int,
     code_phase_chips: float,
     coarse_doppler_hz: float,
@@ -456,7 +469,7 @@ def refine_doppler_device(
 
 
 def acquire_epoch_vote(
-    samples: np.ndarray,
+    samples,
     prns,
     plan: SignalPlan = BASEBAND_PLAN,
     cfg: AcqConfig = AcqConfig(),

@@ -30,7 +30,7 @@ checkpointable (runtime.checkpoint).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import List, Optional, Union
 
 import numpy as np
 import torch
@@ -66,6 +66,11 @@ from ..track.state import TrackOutputs, TrackState, concat_states, init_state
 from ..utils.device import card_or_cpu
 from ..utils.profiling import Profiler
 from .digest import cn0_from_moments, digest_block, digest_to_host
+
+#: A capture as every stage takes it: a flat complex numpy array (copied
+#: to the device once a stage), or a flat tensor (a complex64 one on the
+#: receiver's device is used in place; acquire.engine.epochs_on).
+Samples = Union[np.ndarray, torch.Tensor]
 
 
 def _track_and_digest(state, epochs, code_table, plan, cfg,
@@ -279,14 +284,16 @@ class Receiver:
             table_np = upsampled_code_doubled(table_np)
         return torch.as_tensor(table_np, device=self.device)
 
-    def _to_device(self, samples: np.ndarray, n_epochs: int) -> torch.Tensor:
-        """(n_epochs, S) complex64 block on the device."""
+    def _to_device(self, samples: Samples, n_epochs: int) -> torch.Tensor:
+        """(n_epochs, S) complex64 block on the device: a numpy array is
+        copied there once, a complex64 tensor already there is used in
+        place (``acquire.engine.epochs_on``)."""
         return epochs_on(samples, n_epochs,
                          self.config.plan.samples_per_epoch, self.device)
 
     # -- stages -----------------------------------------------------------
 
-    def acquire_all(self, samples: np.ndarray,
+    def acquire_all(self, samples: Samples,
                     extra_hints: Optional[dict] = None) -> List[AcqResult]:
         """Stage 1: cold acquisition for every configured PRN.
 
@@ -309,7 +316,7 @@ class Receiver:
             ch.state_name = "ACQ_DONE" if res.detected else "ACQ_FAILED"
         return results
 
-    def start_tracking(self, samples: np.ndarray,
+    def start_tracking(self, samples: Samples,
                        start_epoch: int = 0) -> None:
         """Stages 2-3 init: fine Doppler, pre-track refinement, tracking
         state."""
@@ -362,7 +369,7 @@ class Receiver:
         cfg = self.config
         return cfg.device_digest and not cfg.track.emit_correlators
 
-    def process_block(self, samples: np.ndarray) -> None:
+    def process_block(self, samples: Samples) -> None:
         """Stages 3-5 for one block of whole epochs."""
         cfg = self.config
         n_epochs = len(samples) // cfg.plan.samples_per_epoch
@@ -824,7 +831,7 @@ class Receiver:
         self.solutions.append(sol)
         self.solution_epochs.append(meas_epoch_ms)
 
-    def maybe_reacquire(self, recent_samples: np.ndarray) -> List[int]:
+    def maybe_reacquire(self, recent_samples: Samples) -> List[int]:
         """Background acquisition of standby PRNs on recent samples;
         detections join the live tracking state (late-rising satellites —
         the firmware's channel set is fixed at flash time).
@@ -1033,7 +1040,7 @@ class Receiver:
         tow_s, _ = time2gpst(obs[0].time)
         self.rtcm_frames.append(frame(encode_msm(1075, tow_s, msm)))
 
-    def warm_reset(self, samples: np.ndarray) -> None:
+    def warm_reset(self, samples: Samples) -> None:
         """Operator warm reset: drop tracking/nav state but keep each
         channel's learned Doppler as the new acquisition hint
         (gps_master_reset_to_aqc_start, gps_master.c:490-510)."""
@@ -1057,7 +1064,7 @@ class Receiver:
 
     # -- top level --------------------------------------------------------
 
-    def run(self, samples: np.ndarray,
+    def run(self, samples: Samples,
             status_callback=None) -> ReceiverReport:
         """Process a whole capture end-to-end."""
         cfg = self.config

@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..acquire.engine import epochs_on
 from ..config import SignalPlan, TrackConfig
 from ..ops.replica import sample_replicas
 from ..ops.wipeoff import carrier_wipeoff
@@ -50,7 +51,7 @@ def _pretrack_power(
 
 
 def refine_code_phase(
-    samples: np.ndarray,
+    samples,
     code_table: np.ndarray,        # (C, 1023) bipolar
     code_phase_chips: np.ndarray,  # (C,) coarse acquisition result
     doppler_hz: np.ndarray,        # (C,)
@@ -65,9 +66,7 @@ def refine_code_phase(
     device = card_or_cpu(device, "refine_code_phase")
     s_cnt = plan.samples_per_epoch
     e = min(num_epochs or cfg.pre_track_epochs, len(samples) // s_cnt)
-    epochs = torch.as_tensor(
-        np.ascontiguousarray(samples[: e * s_cnt].reshape(e, s_cnt),
-                             dtype=np.complex64), device=device)
+    epochs = epochs_on(samples, e, s_cnt, device)
     k = cfg.pre_track_zone_halfchips + 1
     power = _pretrack_power(
         epochs,
