@@ -212,10 +212,45 @@ before the result line):
    256-epoch chunk at a time, cold start and every block from device
    memory, the last fix within 500 m, every block a CUDA tensor, no
    samples copied from the host (``epochs_on.host_copies``), K1 on every
-   block.  Phase 23's capture and phase 22's 29 s fix_scenario are made
-   in the background from phase 18 on (the fix_scenario in a process of
-   its own).  Phases 18-23's records go into K1's entry of the kernels
-   line, and their seconds into the ``[phases]`` line.
+   block;
+24. the system ceiling (``probes/capacity.py``): phase 3's 32-channel,
+   1000-epoch scenario tiled to 32, 64, 128, 256, 512 and 1024 channels
+   (G = 1 to 4) through the Receiver's per-block program
+   (``_track_and_digest_carried`` then ``digest_to_host``), timed with
+   CUDA events in three parts (K1; the rest on the device; the readback),
+   median over 20 blocks; the 32-channel digest must equal the Receiver's
+   own block bit for bit, and every width's digest the 32-channel digest
+   tiled (integer leaves bit for bit, float leaves bit for bit or within
+   1e-6 relative, and which is printed); the host decode
+   (``probes/host_cost.py``, 30 blocks of LNAV-carrying digests through
+   ``Receiver._consume_digest``) at each width must decode the subframes
+   the JAX package's tools/host_cost_probe.py decodes
+   (JAX_HOST_SUBFRAMES); K1 in its default mode and nothing else; the
+   table of k, h, serial and pipelined multiples and aggregate channels
+   is printed, not gated;
+25. the sensitivity envelope: the seven claims of
+   tests/test_sensitivity.py (``probes/sensitivity.py``) on the card under
+   their bars, each peak ratio printed beside its threshold, the two
+   tracking claims through K1's default mode and the five acquisition
+   claims with no K1 launch; ``probes/ext_pll.py``'s synced-handoff sweep
+   (26-23 dBHz, seeds 42, 7, 21, 75 bits) through K1's ``coherent_pll``
+   and ``coherent_pll_ext5`` modes, the ext loop's bit errors within
+   EXT_MARGIN of tools/ext_pll_tune.py's table (JAX_EXT_ERRS) at every
+   C/N0; then the deep chain (``probes/deep_cold.py``: ULTRA_ACQ +
+   DEEP_COHERENT_TRACK) at 29 dBHz on seeds 7 and 42, every block
+   through K1 with pll_ext_bits = 5 and held to K1's plain version on the
+   CPU from the card's entering state (``deep_cold.check_held``: a part
+   with no marginal decision fails), each run held to the bar of a fix
+   within 500 m with every ephemeris set full and every channel bit
+   synced, or to exactly the seed's known miss where the bar misses on
+   the card (``deep_cold.check_outcome``, KNOWN_MISS; printed "BAR NOT
+   MET"; any other outcome fails).  Phase 12 is the third seed, 21, held
+   to the bar alone.
+   Phase 23's capture, phase 22's 29 s fix_scenario and phase 25's two
+   66 s fix_scenarios are made in the background from phase 18 on (the
+   fix_scenarios in processes of their own).  Phases 18-25's records go
+   into K1's entry of the kernels line, and their seconds into the
+   ``[phases]`` line.
 
 The fix-scenario captures are simulated on the host where their phase
 starts (phase 11's and 12's simulation times are printed, not counted in
@@ -233,13 +268,14 @@ torch and numpy.
 from __future__ import annotations
 
 import json
+import multiprocessing
 import os
 import shutil
 import statistics
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -2110,19 +2146,25 @@ SOAK = dict(capture_s=30, rate_x=2.0, cn0=48.0, seed=9)
 # phase 23's wire capture: tools/tpu_e2e.py's defaults
 WIRE = dict(cib=20, duration_ms=29_000, cn0=48, seed=5)
 
+# phase 25's deep chain: tests/test_e2e_slow.py:70-90 at 29 dBHz on the two
+# seeds of tools/ext_pll_tune.py's set besides phase 12's seed 21 (the JAX
+# package's tools/deep_cold_probe.py fixes at 259.9 m on 7 and 194.1 m on
+# 42 on the CPU)
+DEEP_COLD_CN0 = 29.0
+DEEP_COLD_SEEDS = (7, 42)
 
-def _impaired_fix_capture(directory):
-    """Phase 22's 29 s impaired fix_scenario, simulated in a process of
-    its own (the main process keeps its cores for the card's phases);
-    returns {"samples", "rr_true", "prns", "seconds"}."""
+
+def _simulated(procs, directory, name, save, *args):
+    """A fix_scenario simulated in ``procs``, a pool of spawned processes
+    (the main process keeps its cores for the card's phases): ``save`` (a
+    probes module's save function) writes it to ``name``.npz in
+    ``directory`` with ``args``; returns {"samples", "rr_true", "prns",
+    "seconds"}."""
     import numpy as np
 
     t0 = time.perf_counter()
-    path = os.path.join(directory, "impaired_fix.npz")
-    subprocess.run(
-        [sys.executable, "-c", "import sys; from stm32f4_sdr_gps_torch."
-         "probes import stress; stress.save_impaired_fix(sys.argv[1])",
-         path], cwd=HERE, check=True, capture_output=True, timeout=900)
+    path = os.path.join(directory, f"{name}.npz")
+    procs.submit(save, path, *args).result(timeout=900)
     with np.load(path) as z:
         rec = {"samples": z["samples"], "rr_true": z["rr_true"],
                "prns": tuple(int(p) for p in z["prns"])}
@@ -2130,19 +2172,21 @@ def _impaired_fix_capture(directory):
     return {**rec, "seconds": time.perf_counter() - t0}
 
 
-def _prepare_native(pool):
-    """Phases 19-20's and 22-23's inputs, made in the background from phase
-    18 on: native/ rebuilt on this machine (make -B: never a library built
-    elsewhere), then the wire captures of the three parity suites, the
-    soak and phase 23, one capture_gen each, and phase 22's impaired
-    fix_scenario, all at once in ``pool``.  Returns when phases 19-20's
-    captures are ready: {name: (words, truth)} under "captures", and the
-    futures of phase 23's capture ("wire") and phase 22's ("impaired_fix")
-    under "later"."""
+def _prepare_native(pool, procs):
+    """Phases 19-20's, 22-23's and 25's inputs, made in the background from
+    phase 18 on: native/ rebuilt on this machine (make -B: never a library
+    built elsewhere), then the wire captures of the three parity suites,
+    the soak and phase 23, one capture_gen each, phase 22's impaired
+    fix_scenario and phase 25's two deep-chain fix_scenarios (each in a
+    process of ``procs``), all at once in ``pool``.  Returns when phases 19-20's captures are ready: {name:
+    (words, truth)} under "captures", and the futures of phase 23's
+    capture ("wire"), phase 22's ("impaired_fix") and phase 25's
+    ("deep_cold_<seed>") under "later"."""
     import tempfile
 
+    from stm32f4_sdr_gps_torch.probes import deep_cold
     from stm32f4_sdr_gps_torch.probes import firmware_parity as fp
-    from stm32f4_sdr_gps_torch.probes import soak
+    from stm32f4_sdr_gps_torch.probes import soak, stress
     from stm32f4_sdr_gps_torch.runtime import native
 
     t0 = time.perf_counter()
@@ -2152,7 +2196,13 @@ def _prepare_native(pool):
     build_s = time.perf_counter() - t0
     tmp = tempfile.mkdtemp(prefix="chip_smoke_native_")
     later = {"wire": pool.submit(native.capture_gen, tmp, "wire_e2e", **WIRE),
-             "impaired_fix": pool.submit(_impaired_fix_capture, tmp)}
+             "impaired_fix": pool.submit(_simulated, procs, tmp,
+                                         "impaired_fix",
+                                         stress.save_impaired_fix),
+             **{f"deep_cold_{seed}": pool.submit(
+                 _simulated, procs, tmp, f"deep_cold_{seed}",
+                 deep_cold.save_scenario, DEEP_COLD_CN0, seed)
+                for seed in DEEP_COLD_SEEDS}}
     jobs = {s: pool.submit(fp.generate, s, tmp) for s in fp.SUITES}
     jobs["soak"] = pool.submit(
         soak.capture, SOAK["capture_s"], SOAK["cn0"], SOAK["seed"], tmp)
@@ -2530,6 +2580,218 @@ def wire_phase(words, truth):
     return {**out, "launches": counts["track_scan"]}
 
 
+# ---------------------------------------------------------------- phase 24
+
+# the subframes the JAX package's tools/host_cost_probe.py decodes with
+# measure(C, 1000, 30) at each width (on the CPU); phase 24's host decode of
+# the same digests must decode as many
+JAX_HOST_SUBFRAMES = {32: 98, 64: 196, 128: 392, 256: 782, 512: 1564,
+                      1024: 3128}
+CAPACITY_BLOCKS = 20        # timed blocks a width (after 2 warm-up blocks)
+HOST_BLOCKS = 30            # host_cost.measure's blocks (one warm-up)
+
+
+def capacity_phase():
+    """Phase 24: probes/capacity.py at 32-1024 channels on the card (the
+    per-block program's K1, rest on the device and readback, each width's
+    digest the 32-channel digest tiled, the 32-channel one the Receiver's
+    own), the host decode at each width held to the JAX tool's subframe
+    count, K1 in its default mode and nothing else; prints the table.
+    Returns its record."""
+    from stm32f4_sdr_gps_torch.ops import track_scan as ts
+    from stm32f4_sdr_gps_torch.probes import capacity, host_cost
+
+    _reset_counts()
+    try:
+        recs = capacity.measure(capacity.WIDTHS, CAPACITY_BLOCKS, HOST_BLOCKS)
+    except capacity.CapacityError as e:
+        fail(f"[capacity] {e}")
+    counts = _counts()
+    by_mode = dict(ts.track_scan_cuda.by_mode)
+    want = {("default", c): CAPACITY_BLOCKS + 2 + (c == 32)
+            for c in capacity.WIDTHS}
+    if (by_mode != want or counts["track_scan_plain"] or counts["epl"]
+            or counts["epl_plain"]):
+        fail(f"[capacity] {counts}, K1 {_launched(by_mode)}; want "
+             f"{_launched(want)} and nothing else")
+    for r in recs:
+        c, tiled = r["channels"], r["tiled"]
+        if r["subframes_decoded"] != JAX_HOST_SUBFRAMES[c]:
+            fail(f"[capacity] {c} ch: the host decoded "
+                 f"{r['subframes_decoded']} subframes, the JAX tool "
+                 f"{JAX_HOST_SUBFRAMES[c]}")
+        print(f"[capacity] {c} ch (G = {r['G']}): digest == the 32-channel "
+              f"digest tiled, {len(tiled['exact'])} leaves bit for bit"
+              + (f", float leaves within {tiled['rel']} relative"
+                 if tiled["rel"] else "")
+              + f"; {r['subframes_decoded']} subframes decoded (JAX tool "
+              f"{JAX_HOST_SUBFRAMES[c]})")
+    print("[capacity] the 32-channel digest == the Receiver's "
+          "_track_and_digest_carried + digest_to_host, bit for bit")
+    print(capacity.table(recs))
+    cpu = host_cost.cpu_model()
+    print(f"[capacity] K1 {_launched(by_mode)}; host CPU: {cpu}")
+    return {"widths": recs, "host_cpu": cpu,
+            "launches": {f"{m}_{c}ch": n for (m, c), n in by_mode.items()}}
+
+
+# ---------------------------------------------------------------- phase 25
+
+# tools/ext_pll_tune.py's table (the JAX package's reference scan on the
+# CPU, 75 bits on seeds 42, 7 and 21): the ext loop's bit errors of 222 at
+# each C/N0.  The card's may exceed them by at most EXT_MARGIN (PERF.md).
+JAX_EXT_ERRS = {26.0: 0, 25.0: 0, 24.0: 0, 23.0: 2}
+EXT_MARGIN = 2
+
+
+def _acq_text(r):
+    return (f"{'detected' if r['detected'] else 'missed'} "
+            f"{r['doppler_hz']:.1f} Hz {r['code_phase_chips']:.3f} chip, "
+            f"peak ratio {r['peak_ratio']:.3f} (threshold "
+            f"{r['detect_ratio']})")
+
+
+def sensitivity_phase(deep):
+    """Phase 25: the seven claims of probes/sensitivity.py on the card
+    under their bars (the tracking claims through K1's default mode, one
+    launch each; the acquisition claims with no K1 launch), then
+    probes/ext_pll.py's sweep through K1's coherent_pll modes, the ext
+    loop's errors within EXT_MARGIN of the JAX table, then the deep chain
+    at 29 dBHz on DEEP_COLD_SEEDS (``deep``: {seed: the background
+    capture}), every block through K1 with pll_ext_bits = 5 and held to
+    K1's plain version on the CPU from the same entering state in worker
+    processes (deep_cold.check_held: every part at a marginal decision),
+    the run held to the bar or to exactly the seed's known miss
+    (deep_cold.check_outcome).  Returns its record."""
+    from types import SimpleNamespace
+
+    from stm32f4_sdr_gps_torch.config import DEEP_COHERENT_TRACK
+    from stm32f4_sdr_gps_torch.ops import track_scan as ts
+    from stm32f4_sdr_gps_torch.probes import deep_cold, ext_pll
+    from stm32f4_sdr_gps_torch.probes import sensitivity as sens
+
+    def k1_check(label, want, modes=None):
+        """K1's launches by (mode, C) must be ``want`` or, given ``modes``,
+        ``want`` launches in all, every one in a mode of ``modes``; no
+        other kernel or plain version."""
+        counts = _counts()
+        by_mode = dict(ts.track_scan_cuda.by_mode)
+        ok = (by_mode == want if modes is None else
+              counts["track_scan"] == want
+              and {m for m, _ in by_mode} == modes)
+        if (not ok or counts["track_scan_plain"] or counts["epl"]
+                or counts["epl_plain"]):
+            wanted = (_launched(want) or "no launch" if modes is None
+                      else f"{want} in {sorted(modes)}")
+            fail(f"[sens] {label}: {counts}, K1 {_launched(by_mode)}; want "
+                 f"{wanted} and nothing else")
+        return {f"{m}_{c}ch": n for (m, c), n in by_mode.items()}
+
+    rec = {}
+    for name, fn in sens.CLAIMS.items():
+        _reset_counts()
+        t0 = time.perf_counter()
+        try:
+            out = fn("cuda")
+        except sens.SensitivityError as e:
+            fail(f"[sens] {name}: a bar failed: {e.args}")
+        secs = time.perf_counter() - t0
+        launches = k1_check(name, {("default", 1): 1}
+                            if name in sens.TRACK_CLAIMS else {})
+        rec[name] = {**out, "launches": launches, "seconds": secs}
+        if "runs" in out:
+            said = "; ".join(f"seed {k}: {_acq_text(r)}"
+                             for k, r in out["runs"].items())
+            if "hits" in out:
+                said = f"{out['hits']} of 5 hits; {said}"
+        elif name in sens.TRACK_CLAIMS:
+            said = (f"Doppler {out['doppler_err_hz']:+.3f} Hz, code "
+                    f"{out['code_err_chips']:+.4f} chip, K1 {launches}")
+        else:
+            said = "; ".join(f"{k}: {_acq_text(r)}" for k, r in out.items())
+        print(f"[sens] {name}: holds on the card ({secs:.1f} s); {said}")
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    rows = ext_pll.sweep(device="cuda", ext=DEEP_COHERENT_TRACK)
+    secs = time.perf_counter() - t0
+    n = len(ext_pll.CN0S) * len(ext_pll.SEEDS)
+    launches = k1_check("ext_pll", {("coherent_pll", 1): n,
+                                    ("coherent_pll_ext5", 1): n})
+    for r in rows:
+        bar = (f" (JAX {JAX_EXT_ERRS[r['cn0']]}, bar "
+               f"{JAX_EXT_ERRS[r['cn0']] + EXT_MARGIN})"
+               if r["loop"] == "ext" else "")
+        print(f"[sens] ext_pll cn0={r['cn0']:4.1f} {r['loop']:8s} errs="
+              f"{r['errs']:4d}/{r['bits']}{bar} dop95={r['dop95_hz']:6.2f} Hz")
+    for r in rows:
+        if (r["loop"] == "ext"
+                and r["errs"] > JAX_EXT_ERRS[r["cn0"]] + EXT_MARGIN):
+            fail(f"[sens] ext_pll at {r['cn0']} dBHz: {r['errs']} bit "
+                 f"errors, the JAX table {JAX_EXT_ERRS[r['cn0']]} + "
+                 f"{EXT_MARGIN}")
+    rec["ext_pll"] = {"rows": rows, "launches": launches, "seconds": secs}
+    print(f"[sens] ext_pll: the ext loop within {EXT_MARGIN} bit errors of "
+          f"the JAX table at every C/N0 through K1 ({launches}); "
+          f"{secs:.1f} s")
+
+    procs = ProcessPoolExecutor(
+        max(1, (os.cpu_count() or 2) - 1),
+        mp_context=multiprocessing.get_context("spawn"),
+        initializer=deep_cold.worker_init)
+    for seed, cap in deep.items():
+        sc = SimpleNamespace(**{k: cap[k] for k in ("samples", "rr_true",
+                                                     "prns")})
+        _reset_counts()
+        t0 = time.perf_counter()
+        out = deep_cold.run_traced(sc, "cuda", procs=procs)
+        held_s = time.perf_counter() - t0 - out["wall_s"]
+        del out["trace"]
+        blocks = out["stages"]["track"]["calls"]
+        out["launches"] = k1_check(f"deep_cold seed {seed}", blocks,
+                                   modes={"coherent_pll_ext5"})
+        print("\n".join(f"[sens] deep_cold seed {seed}: {line.strip()}"
+                        for line in deep_cold.report_lines(out)))
+        label = f"[sens] deep chain at {DEEP_COLD_CN0} dBHz, seed {seed}"
+        try:
+            deep_cold.check_held(out["parts"])
+        except deep_cold.DeepColdError as e:
+            fail(f"{label}: {e.args[0]}")
+        held = (f"K1 held to its plain version on the CPU on all {blocks} "
+                f"blocks from the card's entering state ({held_s:.1f} s "
+                "more): " + ("no part" if not out["parts"] else "parts "
+                             + "; ".join(
+                                 f"PRN {p['prn']} in the block at "
+                                 f"{p['block']}, epoch {p['epoch']}, after a "
+                                 f"{p['marginal']} decision at "
+                                 f"{p['marginal_epoch']}"
+                                 for p in out["parts"])))
+        print(f"{label}: {held}")
+        try:
+            how = deep_cold.check_outcome(out, seed)
+        except deep_cold.DeepColdError as e:
+            fail(f"{label}: {e.args[0]} (ROADMAP Queue 3, \"The 29 dBHz "
+                 "fix floor\")")
+        out.update(simulate_s=cap["seconds"], outcome=how,
+                   held_extra_s=held_s)
+        rec[f"deep_cold_29dbhz_seed{seed}"] = out
+        if how == "fix":
+            said = (f"fix {out['fix_error_m']:.2f} m (bar "
+                    f"{deep_cold.FIX_BAR_M:.0f}), every set full and every "
+                    "channel synced")
+        else:
+            prn, n = deep_cold.KNOWN_MISS[seed]
+            said = (f"BAR NOT MET: no fix, PRN {prn} short of a set with {n} "
+                    "subframes, every other set full, every channel synced: "
+                    "the known miss of this seed (deep_cold.KNOWN_MISS; "
+                    "ROADMAP Queue 3, \"The 29 dBHz fix floor\")")
+        print(f"{label}: {said}; K1 {out['launches']} for {blocks} blocks; "
+              f"{out['wall_s']:.2f} s wall with the held blocks' copies "
+              f"({out['x_real_time']:.1f}x real time)")
+    procs.shutdown()
+    return rec
+
+
 def main():
     sys.path.insert(0, HERE)
     import stm32f4_sdr_gps_torch
@@ -2584,8 +2846,12 @@ def main():
     # phases 19-20's and 22-23's native build and captures run meanwhile
     from stm32f4_sdr_gps_torch.probes import firmware_parity as fp
 
-    prep_pool = ThreadPoolExecutor(len(fp.SUITES) + 4)
-    prep = prep_pool.submit(_prepare_native, prep_pool)
+    prep_pool = ThreadPoolExecutor(len(fp.SUITES) + 4
+                                   + len(DEEP_COLD_SEEDS))
+    sim_procs = ProcessPoolExecutor(
+        1 + len(DEEP_COLD_SEEDS), mp_context=multiprocessing.get_context(
+            "spawn"))
+    prep = prep_pool.submit(_prepare_native, prep_pool, sim_procs)
     t0 = time.perf_counter()
     refscan = reference_scan_phase(sc, fix_err)
     phase_s[18] = time.perf_counter() - t0
@@ -2603,18 +2869,35 @@ def main():
     trace = trace_phase(sc)
     phase_s[21] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    later = {k: f.result() for k, f in native_caps["later"].items()}
-    prep_pool.shutdown()
-    shutil.rmtree(native_caps["dir"])
+    later = native_caps["later"]
+    impaired, wire_cap = (later.pop(k).result()
+                          for k in ("impaired_fix", "wire"))
     print(f"[stress] the wire capture and the impaired fix_scenario ready "
           f"({time.perf_counter() - t0:.1f} s waited; the fix_scenario "
-          f"simulated in {later['impaired_fix']['seconds']:.1f} s)")
-    stress_rec = stress_phase(later.pop("impaired_fix"))
+          f"simulated in {impaired['seconds']:.1f} s)")
+    stress_rec = stress_phase(impaired)
+    del impaired
     phase_s[22] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    wire_rec = wire_phase(*later.pop("wire"))
+    wire_rec = wire_phase(*wire_cap)
+    del wire_cap
     phase_s[23] = time.perf_counter() - t0
-    print(f"[phases] seconds of phases 11-23: "
+    t0 = time.perf_counter()
+    capacity_rec = capacity_phase()
+    phase_s[24] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    deep = {seed: later.pop(f"deep_cold_{seed}").result()
+            for seed in DEEP_COLD_SEEDS}
+    prep_pool.shutdown()
+    sim_procs.shutdown()
+    shutil.rmtree(native_caps["dir"])
+    print(f"[sens] the deep chain's captures ready "
+          f"({time.perf_counter() - t0:.1f} s waited; simulated in "
+          f"{ {s: round(c['seconds'], 1) for s, c in deep.items()} } s)")
+    sens_rec = sensitivity_phase(deep)
+    del deep
+    phase_s[25] = time.perf_counter() - t0
+    print(f"[phases] seconds of phases 11-25: "
           f"{ {k: round(v, 1) for k, v in phase_s.items()} }")
     src = "stm32f4_sdr_gps_torch/csrc/"
     k2_b4, k2_b32 = k2_bound(4), k2_bound(32)
@@ -2675,6 +2958,8 @@ def main():
         "trace": trace,
         "stress": stress_rec,
         "wire_e2e": wire_rec,
+        "capacity": capacity_rec,
+        "sensitivity": sens_rec,
     }, {
         "name": "epl",
         "route": "cuda",

@@ -110,11 +110,15 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def launch(device: str = "cpu", fix=None, timeout_s: float = 240.0) -> list:
+def launch(device: str = "cuda", fix=None, timeout_s: float = 240.0) -> list:
     """Write the captures (with ``fix``, a FixScenario, also stage 4's,
     and run it: ``--slow``), start two ranks as subprocesses of this
     interpreter, and wait for them (:func:`_wait_ranks`).  Returns each
-    rank's last-line record."""
+    rank's last-line record.  The ranks run on the card unless the
+    caller asks for the CPU; raises without a card before any work."""
+    from ..utils.device import card_or_cpu
+
+    device = card_or_cpu(device, "multiprocess_run.launch").type
     root = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     # gloo picks its interface from the host name unless told: loopback,

@@ -38,8 +38,10 @@ PHASES = {
 }
 
 
-def run_once(sc, cfg) -> dict:
-    """One ``Receiver.run`` on the card; its record."""
+def run_once(sc, cfg, device="cuda") -> dict:
+    """One ``Receiver.run`` on ``device`` (the card unless the caller asks
+    for the CPU); its record, with each channel's bit sync, ephemeris mask
+    (subframes 1-3 as bits 0-2), SNR and subframes."""
     import numpy as np
     import torch
 
@@ -47,10 +49,11 @@ def run_once(sc, cfg) -> dict:
     from stm32f4_sdr_gps_torch.runtime.receiver import Receiver
 
     ts.track_scan_cuda.launches = 0
-    rx = Receiver(cfg)
+    rx = Receiver(cfg, device=device)
     t0 = time.perf_counter()
     report = rx.run(sc.samples)
-    torch.cuda.synchronize()
+    if rx.device.type == "cuda":
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     sol = report.solutions[-1] if report.solutions else None
     return {
@@ -63,6 +66,13 @@ def run_once(sc, cfg) -> dict:
                           "total_ms": st.total_s * 1e3,
                           "overruns": st.overruns}
                    for name, st in sorted(rx.profiler.stages.items())},
+        "solutions": len(report.solutions),
+        "channels": [{"prn": ch.prn, "bit_synced": bool(ch.bit_synced),
+                      "eph_full": bool(ch.eph.has_full_set),
+                      "mask": ch.eph.received_mask_proc,
+                      "snr_db": float(ch.snr_db),
+                      "subframes": ch.subframe_count}
+                     for ch in report.channels],
     }
 
 

@@ -123,6 +123,9 @@ MESH_CALLS = {
     "multiprocess_run": (
         lambda: multiprocess_run.main(["0", "1", "0", "--captures", "."]),
         r"multiprocess_run\(device='cuda'\).*device='cpu'"),
+    "multiprocess_run_launch": (
+        lambda: multiprocess_run.launch(),
+        r"multiprocess_run\.launch\(device='cuda'\).*device='cpu'"),
 }
 
 

@@ -10,14 +10,17 @@ PKG = os.path.join(ROOT, "stm32f4_sdr_gps_torch")
 # the modules ported from the JAX package's weak-signal chain, capture
 # ingest, checkpoint, RTCM and command line, its mesh and multi-process
 # runtime, the entry points, the profiler, the streaming soak, the
-# firmware-oracle suites, the robustness suites and the wire-to-fix run
+# firmware-oracle suites, the robustness suites, the wire-to-fix run, and
+# the host-cost, capacity and sensitivity probes
 NEW_MODULES = ("track.aided_sync", "io.bits", "io.rtcm3", "signal.capture",
                "runtime.checkpoint", "__main__", "parallel.mesh",
                "parallel.streaming", "runtime.mesh_receiver",
                "runtime.multiprocess", "runtime.native",
                "probes.multiprocess_run", "probes.mesh_gather", "entry",
                "utils.profiling", "probes.soak", "probes.firmware_parity",
-               "probes.stress", "probes.wire_e2e")
+               "probes.stress", "probes.wire_e2e", "probes.host_cost",
+               "probes.capacity", "probes.sensitivity", "probes.ext_pll",
+               "probes.deep_cold")
 
 _PROBE = r"""
 import importlib, pkgutil, sys
