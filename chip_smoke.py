@@ -237,7 +237,8 @@ before the result line):
    and ``coherent_pll_ext5`` modes, the ext loop's bit errors within
    EXT_MARGIN of tools/ext_pll_tune.py's table (JAX_EXT_ERRS) at every
    C/N0; then the deep chain (``probes/deep_cold.py``: ULTRA_ACQ +
-   DEEP_COHERENT_TRACK) at 29 dBHz on seeds 7 and 42, every block
+   DEEP_COHERENT_TRACK) at 29 dBHz on seeds 7 and 42 (eager:
+   ``deep_cold.run_traced`` reads every block's slot stream), every block
    through K1 with pll_ext_bits = 5 and held to K1's plain version on the
    CPU from the card's entering state (``deep_cold.check_held``: a part
    with no marginal decision fails), each run held to the bar of a fix
@@ -250,7 +251,27 @@ before the result line):
    66 s fix_scenarios are made in the background from phase 18 on (the
    fix_scenarios in processes of their own).  Phases 18-25's records go
    into K1's entry of the kernels line, and their seconds into the
-   ``[phases]`` line.
+   ``[phases]`` line;
+26. the captured programs (``utils/graphs.py``, ``probes/
+   graph_replay.py``): K1's carried block program at 4, 32 and 256
+   channels (G = 2), the K2 per-epoch ``_track_and_digest`` and the
+   reference scan's at 32, each from one entering state over three
+   1000-epoch blocks and a fourth with the last channel dropped (a new
+   key, captured anew), run eagerly (``graphs.disable_capture()``) and
+   replayed: every leaf of the returned states and digest bit for bit,
+   block n's results unchanged by block n + 1, K1 once a block and K2
+   once an epoch and nothing else, one capture a key; printed, not
+   gated: each block's host wall and CUDA-event span, eager and
+   replayed, the captures and warm-up launches; then K1's program at 32
+   channels again with the blocks already on the card (checked the same
+   way; its times hold no host copy), and the card's busy share of two
+   warm such blocks, eager and replayed, by phase 21's method.  Its
+   records go into K1's and K2's entries of the kernels line.
+
+Every tracking program runs as a captured CUDA graph by default
+(``utils/graphs.py``: the port's ``jax.jit``), and every phase's launch
+counts are those of the programs' replays (a capture's warm-up launches
+are counted apart); each Receiver run prints the captures it made.
 
 The fix-scenario captures are simulated on the host where their phase
 starts (phase 11's and 12's simulation times are printed, not counted in
@@ -728,10 +749,13 @@ def _run_receiver(sc, track, label, acq=None):
 
     cfg = ReceiverConfig(prns=sc.prns, track=track, track_block_epochs=1000,
                          acq=acq or AcqConfig())
+    from stm32f4_sdr_gps_torch.utils import graphs
+
     rx = Receiver(cfg)                      # the card, by default
     if rx.device.type != "cuda":
         fail(f"{label}: Receiver(cfg) chose {rx.device}, not the card")
     _reset_counts()
+    captures = graphs.stats["captures"]
     t0 = time.perf_counter()
     report = rx.run(sc.samples)
     torch.cuda.synchronize()
@@ -742,7 +766,8 @@ def _run_receiver(sc, track, label, acq=None):
     print(f"[{label}] Receiver.run: {wall:.2f} s wall for "
           f"{report.epochs_processed} epochs ({tracked} tracked in {blocks} "
           f"blocks; {len(sc.samples) / 2.046e6 / wall:.2f}x real time); "
-          f"counts {counts}")
+          f"counts {counts}; {graphs.stats['captures'] - captures} "
+          "captures")
     print(rx.profiler.report())
     for ch in report.channels:
         print(f"[{label}] PRN {ch.prn:2d} {ch.state_name} dop "
@@ -2792,6 +2817,93 @@ def sensitivity_phase(deep):
     return rec
 
 
+# ---------------------------------------------------------------- phase 26
+
+def graphs_phase():
+    """Phase 26: the captured programs against their eager runs
+    (probes/graph_replay.py, every check of ``check``), their per-block
+    times, K1's program at 32 channels with its blocks on the card, and
+    the card's busy share of two warm such blocks, eager and replayed, by
+    phase 21's method.  Returns its record."""
+    import contextlib
+    import tempfile
+
+    import torch
+
+    from stm32f4_sdr_gps_torch.probes import graph_replay as gr
+    from stm32f4_sdr_gps_torch.utils import graphs
+    from stm32f4_sdr_gps_torch.utils.profiling import Profiler
+
+    t0 = time.perf_counter()
+    data = gr.scenario()
+    print(f"[graphs] {len(data[0])} blocks of {gr.BLOCK} epochs of "
+          f"{len(gr.PRNS)} satellites simulated in "
+          f"{time.perf_counter() - t0:.1f} s")
+    rec = {}
+    for name, widths in gr.WIDTHS.items():
+        for c in widths:
+            try:
+                eager = gr.run(name, c, data, True)
+                replayed = gr.run(name, c, data, False)
+                gr.check(name, c, eager, replayed)
+            except gr.GraphCheckError as e:
+                fail(f"[graphs] {e}")
+            s = gr.summary(eager, replayed)
+            rec[f"{name}_{c}ch"] = s
+
+            def ms(v):
+                return [round(x, 3) for x in v]
+
+            print(f"[graphs] {name} {c} ch: replayed = eager bit for bit "
+                  f"over {gr.BLOCKS} blocks and one at {c - 1} ch, block n "
+                  f"unchanged by n + 1; launches {s['launches']}, "
+                  f"{s['captures']} captures, warm-up launches "
+                  f"{s['warmup_launches']}; host wall ms eager "
+                  f"{ms(s['eager']['wall_ms'])}, replayed "
+                  f"{ms(s['replayed']['wall_ms'])}; event span ms eager "
+                  f"{ms(s['eager']['span_ms'])}, replayed "
+                  f"{ms(s['replayed']['span_ms'])}")
+    # K1's program again with the blocks already on the card (the wire
+    # path's hand-over): its times without the block's host copy
+    try:
+        eager = gr.run("k1_carried", 32, data, True, device_blocks=True)
+        replayed = gr.run("k1_carried", 32, data, False, device_blocks=True)
+        gr.check("k1_carried", 32, eager, replayed)
+    except gr.GraphCheckError as e:
+        fail(f"[graphs] blocks on the card: {e}")
+    s = gr.summary(eager, replayed)
+    rec["k1_carried_32ch"]["device_blocks"] = s
+    print(f"[graphs] k1_carried 32 ch, blocks on the card: replayed = "
+          f"eager bit for bit; host wall ms eager "
+          f"{[round(x, 3) for x in s['eager']['wall_ms']]}, replayed "
+          f"{[round(x, 3) for x in s['replayed']['wall_ms']]}")
+    busy = {}
+    for label, eager in (("eager", True), ("replayed", False)):
+        with tempfile.TemporaryDirectory() as logdir:
+            @contextlib.contextmanager
+            def trace():
+                with Profiler().device_trace(logdir):
+                    with torch.profiler.record_function("graph_replay.blocks"):
+                        yield
+
+            gr.run("k1_carried", 32, data, eager, trace=trace,
+                   device_blocks=True)
+            window, on, by_name = _busy_share(
+                os.path.join(logdir, "trace.json"), "graph_replay.blocks")
+        busy[label] = {"window_ms": window / 1e3, "busy_ms": on / 1e3,
+                       "busy_share": on / window if by_name and window > 0
+                       else None}
+    print(f"[graphs] K1's program at 32 ch, two warm blocks on the card "
+          "traced: "
+          + "; ".join(f"{k} window {v['window_ms']:.3f} ms, the card busy "
+                      f"{v['busy_ms']:.3f} ms ("
+                      + (f"{100 * v['busy_share']:.1f} %" if v['busy_share']
+                         is not None else "no device event: not measured")
+                      + ")" for k, v in busy.items()))
+    rec["k1_carried_32ch"]["busy"] = busy
+    return rec
+
+
 def main():
     sys.path.insert(0, HERE)
     import stm32f4_sdr_gps_torch
@@ -2897,8 +3009,16 @@ def main():
     sens_rec = sensitivity_phase(deep)
     del deep
     phase_s[25] = time.perf_counter() - t0
-    print(f"[phases] seconds of phases 11-25: "
+    t0 = time.perf_counter()
+    graphs_rec = graphs_phase()
+    phase_s[26] = time.perf_counter() - t0
+    from stm32f4_sdr_gps_torch.utils import graphs
+
+    print(f"[phases] seconds of phases 11-26: "
           f"{ {k: round(v, 1) for k, v in phase_s.items()} }")
+    print(f"[graphs] this run: {graphs.stats['captures']} captures, "
+          f"{graphs.stats['replays']} replays, {graphs.stats['evictions']} "
+          f"evictions, warm-up launches {graphs.stats['warmup_launches']}")
     src = "stm32f4_sdr_gps_torch/csrc/"
     k2_b4, k2_b32 = k2_bound(4), k2_bound(32)
 
@@ -2960,6 +3080,8 @@ def main():
         "wire_e2e": wire_rec,
         "capacity": capacity_rec,
         "sensitivity": sens_rec,
+        "graphs": {k: v for k, v in graphs_rec.items()
+                   if not k.startswith("k2_")},
     }, {
         "name": "epl",
         "route": "cuda",
@@ -2975,6 +3097,7 @@ def main():
         **{f"{k}_32ch": v for k, v in k2_times[32].items()},
         "bound_ms_32ch": k2_b32[0],
         **ptxas["epl"],
+        "graphs": graphs_rec["k2_per_epoch_32ch"],
     }] + [{
         "name": f"corr_bank_{v}",
         "route": "cuda",

@@ -5,11 +5,13 @@
   CUDA device, its plain version on the CPU) carrying its own kernel
   state, followed by the on-device block digest — the program
   ``Receiver.process_block`` runs per block
-  (runtime.receiver._track_and_digest_carried).
+  (runtime.receiver._track_and_digest_carried; on the card one captured
+  CUDA graph, utils.graphs).
 * :func:`entry_jnp_scan` — the reference backend as an explicit variant:
   32 channels x 100 epochs through the fractional-phase reference scan
   (``TrackConfig(in_kernel_scan=False)``, the same math without the
-  kernel).
+  kernel; on the card the epoch step is a captured graph replayed once
+  an epoch).
 * :func:`dryrun_multichip` — the whole sharded step on an n-position
   mesh over one device repeated: sharded acquisition, the halo, the
   channel-sharded reference scan and tracking-scan kernel, and the

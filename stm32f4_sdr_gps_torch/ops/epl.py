@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..config import CODE_LENGTH
+from ..utils import graphs
 
 S = 2 * CODE_LENGTH            # 2046 samples / epoch at 2 samples/chip
 U2P = 4352                     # width of a doubled upsampled code row
@@ -127,7 +128,8 @@ def epl_correlate_cuda(x, u2, code_phase_chips, doppler_hz,
                        carrier_phase_cycles, sample_rate_hz):
     """Launch the per-epoch E/P/L kernel (csrc/epl.cu) on the card: same
     contract as :func:`epl_correlate_halfchip`.
-    ``epl_correlate_cuda.launches`` counts kernel launches."""
+    ``epl_correlate_cuda.launches`` counts kernel launches (a replayed
+    graph adds those its capture holds, utils.graphs)."""
     from .kernel_lib import epl_lib
 
     if not x.is_cuda:
@@ -151,6 +153,7 @@ def epl_correlate_cuda(x, u2, code_phase_chips, doppler_hz,
 
 
 epl_correlate_cuda.launches = 0
+graphs.count_launches(epl_correlate_cuda)
 
 
 def epl_correlate_host(x, u2, code_phase_chips, doppler_hz,

@@ -45,6 +45,7 @@ import torch
 from ..config import CODE_LENGTH, FREQ_L1_HZ, SignalPlan, TrackConfig
 from ..track.scan import _lcg_uniform, _wrap_half
 from ..track.state import TrackOutputs, TrackState
+from ..utils import graphs
 from .epl import S, U2P, epl_correlate_halfchip
 from .wipeoff import _f32, fma
 
@@ -527,9 +528,11 @@ def track_scan_cuda(state: ScanState, epochs: torch.Tensor,
     return ScanState(f32=f32, i32=i32, win=win), out
 
 
-# launches in all, and by (kernel_mode, channel count)
+# launches in all, and by (kernel_mode, channel count); a replayed graph
+# adds the launches its capture holds (utils.graphs)
 track_scan_cuda.launches = 0
 track_scan_cuda.by_mode = {}
+graphs.count_launches(track_scan_cuda)
 
 
 def kernel_mode(cfg: TrackConfig) -> str:
@@ -590,6 +593,7 @@ def track_scan(state: ScanState, epochs: torch.Tensor, u2: torch.Tensor,
     raise ValueError(f"no tracking scan for device {epochs.device}")
 
 
+@graphs.captured(static_argnames=("plan", "cfg"))
 def track_block_kernel(state: TrackState, epochs: torch.Tensor,
                        u2: torch.Tensor, plan: SignalPlan,
                        cfg: TrackConfig) -> tuple:
@@ -597,7 +601,9 @@ def track_block_kernel(state: TrackState, epochs: torch.Tensor,
     kernel: ``(final TrackState, TrackOutputs with (T, C) leaves)``.  The
     ScanState is rebuilt from the TrackState on every call; the Receiver
     carries the ScanState itself between blocks
-    (runtime.receiver._track_and_digest_carried)."""
+    (runtime.receiver._track_and_digest_carried).  On the card one
+    captured graph (utils.graphs): the packing, K1's one launch and the
+    unpacking."""
     ps, raw = track_scan(state_from_track_state(state), epochs, u2, plan,
                          cfg)
     return state_to_track_state(ps), outputs_from_raw(raw)

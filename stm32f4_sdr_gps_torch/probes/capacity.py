@@ -6,12 +6,15 @@ beside the host decode of the same channels.
 
 The per-block program is what the Receiver's kernel path runs for each
 block (``runtime.receiver._track_and_digest_carried``, then
-``runtime.digest.digest_to_host``), here on probes/scan_time.py's
+``runtime.digest.digest_to_host``), written out eagerly so that its parts
+can be timed (the Receiver replays it as one captured graph,
+utils.graphs; probes/graph_replay.py times that), here on
+probes/scan_time.py's
 32-channel, 1000-epoch K1 scenario tiled to C channels
 (``scan_time.tiled``).  Each block is timed with CUDA events in three
 parts: K1 (``track_scan``); the rest on the device (``outputs_from_raw``,
 ``state_to_track_state``, ``digest_block``); and the readback
-(``digest_to_host``, one synchronizing copy a leaf).  The median over
+(``digest_to_host``, one packed buffer copied at once).  The median over
 ``--blocks`` blocks gives k, the program's real-time multiple (1000 ms
 of signal over its time).  probes/host_cost.py's ``measure`` at the same
 C and block length gives h, the host decode's multiple; the two combine

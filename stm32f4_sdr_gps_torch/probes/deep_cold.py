@@ -254,8 +254,11 @@ def run_traced(sc, device="cuda", kernel_plain=False, procs=None) -> dict:
     started with :func:`worker_init`), each block of K1 on the card is
     also run there through its plain version on the CPU from the same
     entering ScanState and held to it (:func:`held_block`; the card's
-    state carries on): "parts" lists each block where a channel parted."""
+    state carries on): "parts" lists each block where a channel parted.
+    The run is eager (``graphs.disable_capture``): its hook reads each
+    block's slot stream, which a captured program keeps inside."""
     from ..runtime import receiver
+    from ..utils import graphs
 
     trace = {"blocks": [], "windows": []}
     held_jobs = []
@@ -289,7 +292,8 @@ def run_traced(sc, device="cuda", kernel_plain=False, procs=None) -> dict:
     receiver.boundary_from_flip_hist = hist
     receiver.engage_bit_sync = engage
     try:
-        rec = run(sc, device, kernel_plain)
+        with graphs.disable_capture():
+            rec = run(sc, device, kernel_plain)
     finally:
         receiver.track_scan = orig_scan
         receiver.boundary_from_flip_hist = orig_hist

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..config import CODE_LENGTH, FREQ_L1_HZ, TrackConfig
+from ..utils import graphs
 
 
 class BlockDigest(NamedTuple):
@@ -164,9 +165,12 @@ def digest_block(outs, final_state, cfg: TrackConfig, code_filter_len: int,
 
 
 def digest_to_host(d: BlockDigest) -> BlockDigest:
-    """The digest's leaves as numpy arrays: the block's only readback
-    (one small copy per leaf)."""
-    return BlockDigest(*(v.cpu().numpy() for v in d))
+    """The digest's leaves as numpy arrays, each of its leaf's dtype and
+    shape: the block's only readback, one packed buffer
+    (utils.graphs.pack) copied to the host at once."""
+    specs = [(v.dtype, tuple(v.shape)) for v in d]
+    host = graphs.pack(list(d)).cpu()
+    return BlockDigest(*(v.numpy() for v in graphs.unpack(host, specs)))
 
 
 def cn0_from_moments(m2: float, m4: float, n: int,

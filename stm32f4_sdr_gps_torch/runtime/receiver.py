@@ -10,8 +10,9 @@ batched program per stage over a recorded capture:
    (tracking.c:398-499).
 3. **Track** — one tracking call per block of epochs, all channels
    batched: on a CUDA device the tracking-scan kernel, carrying its own
-   state between blocks, followed by the on-device block digest; only
-   the digest is copied to the host.
+   state between blocks, followed by the on-device block digest, as one
+   captured CUDA graph (utils.graphs); only the digest is copied to the
+   host.
 4. **Decode** — per-channel nav framers consume bit events; subframes
    update ephemerides (nav_data.c / nav_data_decode.c roles).
 5. **Solve** — observables formed on the sample ledger at the solve
@@ -63,6 +64,7 @@ from ..track.aided_sync import boundary_from_flip_hist, engage_bit_sync
 from ..track.pretrack import refine_code_phase
 from ..track.scan import track_block
 from ..track.state import TrackOutputs, TrackState, concat_states, init_state
+from ..utils import graphs
 from ..utils.device import card_or_cpu
 from ..utils.profiling import Profiler
 from .digest import cn0_from_moments, digest_block, digest_to_host
@@ -73,22 +75,32 @@ from .digest import cn0_from_moments, digest_block, digest_to_host
 Samples = Union[np.ndarray, torch.Tensor]
 
 
+_digest = graphs.captured(
+    static_argnames=("cfg", "code_filter_len", "enable_code_filter"))(
+        digest_block)
+
+
 def _track_and_digest(state, epochs, code_table, plan, cfg,
                       code_filter_len, enable_code_filter):
     """Tracking scan + on-device block digest: the (T, C) outputs stay
-    on the device."""
+    on the device.  On the card two programs where the JAX package's jit
+    has one (a capture cannot nest): ``track_block``'s epoch step,
+    replayed once an epoch, then the captured digest."""
     state, outs = track_block(state, epochs, code_table, plan, cfg)
-    return state, digest_block(outs, state, cfg, code_filter_len,
-                               enable_code_filter)
+    return state, _digest(outs, state, cfg, code_filter_len,
+                          enable_code_filter)
 
 
+@graphs.captured(
+    static_argnames=("plan", "cfg", "code_filter_len", "enable_code_filter"))
 def _track_and_digest_carried(ps, epochs, code_table, plan, cfg,
                               code_filter_len, enable_code_filter):
     """Kernel variant of _track_and_digest that takes and returns the
     kernel's own ScanState, so every carried plane (the latched SNR
     window sums included) survives block boundaries instead of being
     rebuilt from the TrackState each call.  Also returns the TrackState
-    view for the host-side channel logic."""
+    view for the host-side channel logic.  On the card one captured
+    graph: K1, the unpacking and the digest."""
     ps2, raw = track_scan(ps, epochs, code_table, plan, cfg)
     outs = outputs_from_raw(raw)
     ts = state_to_track_state(ps2)
@@ -291,6 +303,21 @@ class Receiver:
         return epochs_on(samples, n_epochs,
                          self.config.plan.samples_per_epoch, self.device)
 
+    def _block(self, samples: Samples, n_epochs: int) -> torch.Tensor:
+        """The block as the tracking programs take it.  On the card a
+        numpy block stays on the host, as a (n_epochs, S) complex64
+        tensor: the program copies it once, straight into its static
+        input (utils.graphs; counted in ``epochs_on.host_copies``).  A
+        tensor, or any block of a CPU receiver, as ``_to_device`` gives
+        it."""
+        if isinstance(samples, np.ndarray) and self.device.type == "cuda":
+            spe = self.config.plan.samples_per_epoch
+            epochs_on.host_copies += 1
+            return torch.from_numpy(np.ascontiguousarray(
+                samples[: n_epochs * spe].reshape(n_epochs, spe),
+                dtype=np.complex64))
+        return self._to_device(samples, n_epochs)
+
     # -- stages -----------------------------------------------------------
 
     def acquire_all(self, samples: Samples,
@@ -373,7 +400,7 @@ class Receiver:
         """Stages 3-5 for one block of whole epochs."""
         cfg = self.config
         n_epochs = len(samples) // cfg.plan.samples_per_epoch
-        epochs = self._to_device(samples, n_epochs)
+        epochs = self._block(samples, n_epochs)
         if self._digest_active:
             # device-resident loop: the (T, C) outputs never leave the
             # device; the stage ends when the digest is on the host
@@ -467,9 +494,10 @@ class Receiver:
         disagrees overrides it.
 
         ``hist`` is this block's (cib, C) sign-flip histogram keyed by
-        global epoch residue; ``epochs`` is the block's (T, S) tensor,
-        already on the device (the re-anchor reads it there, no second
-        copy).  All statistics are digest-sized."""
+        global epoch residue; ``epochs`` is the block's (T, S) tensor as
+        ``_block`` gave it (the re-anchor reads up to 512 epochs of it on
+        the device: no copy where the block is there already, one where
+        it is on the host).  All statistics are digest-sized."""
         cfg = self.config
         cib = cfg.track.codes_in_bit
         n_chan = hist.shape[1]
@@ -546,7 +574,7 @@ class Receiver:
                                     device=dev)
             dops = self.track_state.doppler_hz.cpu().numpy()
             refined = refine_doppler_device(
-                epochs[:span], table,
+                epochs[:span].to(dev), table,
                 torch.as_tensor(np.asarray(cp0, np.float32), device=dev),
                 self.track_state.doppler_hz, cfg.plan,
             ).cpu().numpy()

@@ -12,14 +12,16 @@ bit-sync part of ``nav_data.c:46-138``) with all C channels advanced
 * time stays sequential with 1 ms loop closure; parallelism comes from
   channels.
 
-:func:`track_block` is a Python loop over :func:`track_epoch_step` — the
-per-epoch reference scan — unless ``cfg.in_kernel_scan`` resolves to
-True, in which case the whole block runs as the tracking-scan kernel
-(ops.track_scan).  In half-chip mode (``cfg.use_pallas``) each epoch's
-E/P/L goes through ops.epl.epl_correlate, which launches the per-epoch
-kernel (csrc/epl.cu) for CUDA tensors and runs its plain torch version
-for CPU tensors; that scan is also the spec the tracking-scan kernel is
-held to.
+:func:`track_block` is ``lax.scan`` of :func:`track_epoch_step` (the
+per-epoch reference scan) in step form (utils.graphs.scan): on the card
+one captured graph of the step, replayed once an epoch, as the JAX
+package's ``jax.jit`` of the scan is one program; on the CPU the same
+step form eagerly.  When ``cfg.in_kernel_scan`` resolves to True the
+whole block runs as the tracking-scan kernel (ops.track_scan), one
+launch.  In half-chip mode (``cfg.use_pallas``) each epoch's E/P/L goes
+through ops.epl.epl_correlate, which launches the per-epoch kernel
+(csrc/epl.cu) for CUDA tensors and runs its plain torch version for CPU
+tensors; that scan is also the spec the tracking-scan kernel is held to.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from ..ops import epl as half_chip
 from ..ops.correlate import epl_correlate
 from ..ops.replica import sample_replicas
 from ..ops.wipeoff import _f32, carrier_wipeoff, fma
+from ..utils import graphs
 from .state import TrackOutputs, TrackState
 
 _U32 = 0xFFFFFFFF
@@ -104,7 +107,10 @@ def track_epoch_step(
                             state.carrier_phase_cycles)
         carrier_phase = carrier_phase - torch.floor(carrier_phase)
     else:
-        lags = (-cfg.epl_spacing_chips, 0.0, cfg.epl_spacing_chips)
+        # made on the device (no host copy inside a captured step): the
+        # float32 values of (-spacing, 0, +spacing)
+        lags = cfg.epl_spacing_chips * torch.arange(
+            -1, 2, dtype=f32, device=code_table.device)
         replicas = sample_replicas(
             code_table, state.code_phase_chips, code_freq_cps, s_cnt, lags
         )
@@ -373,18 +379,6 @@ def track_epoch_step(
     return new_state, outputs
 
 
-def _stack_outputs(steps) -> TrackOutputs:
-    """Stack per-epoch TrackOutputs into (T, C) leaves (zero-size
-    diagnostics placeholders stay zero-size)."""
-    fields = []
-    for leaves in zip(*steps):
-        if leaves[0].numel() == 0:
-            fields.append(leaves[0])
-        else:
-            fields.append(torch.stack(leaves))
-    return TrackOutputs(*fields)
-
-
 def track_block(
     state: TrackState,
     epochs: torch.Tensor,          # (T, S) complex64
@@ -394,19 +388,21 @@ def track_block(
 ) -> tuple:
     """Scan ``T`` epochs of signal through all channels.
 
-    Returns ``(final_state, TrackOutputs with (T, C) leaves)``.
+    Returns ``(final_state, TrackOutputs with (T, C) leaves)``; the E/L
+    diagnostics stay zero-size placeholders unless cfg.emit_correlators.
 
-    When ``cfg.in_kernel_scan`` resolves to True for the device of
-    ``epochs`` the whole loop runs as the tracking-scan kernel
+    When ``cfg.in_kernel_scan`` resolves to True for the state's device
+    the whole loop runs as the tracking-scan kernel
     (ops.track_scan.track_block_kernel); the ``code_table`` must then be
-    the doubled upsampled table, as for ``cfg.use_pallas``.
+    the doubled upsampled table, as for ``cfg.use_pallas``.  On the card
+    ``epochs`` may also be a host tensor: it is copied once, into the
+    program's input.
     """
-    if resolve_in_kernel_scan(cfg, epochs.device):
+    if resolve_in_kernel_scan(cfg, state.doppler_hz.device):
         from ..ops.track_scan import track_block_kernel
 
         return track_block_kernel(state, epochs, code_table, plan, cfg)
-    steps = []
-    for t in range(epochs.shape[0]):
-        state, out = track_epoch_step(state, epochs[t], code_table, plan, cfg)
-        steps.append(out)
-    return state, _stack_outputs(steps)
+    state, outs = graphs.scan(track_epoch_step, state, epochs,
+                              (code_table,), (plan, cfg))
+    return state, TrackOutputs(*(
+        v.reshape(-1) if math.prod(v.shape[1:]) == 0 else v for v in outs))

@@ -2,7 +2,8 @@
 versions: the tracking scan (K1, in each of its modes), the per-epoch
 E/P/L correlator (K2), the correlator-bank probe (P5), the epoch-cost
 probes (P6-P8) and the roll probes (P1-P4); K1 once a position of a
-mesh that repeats the card.
+mesh that repeats the card; the captured tracking programs
+(utils.graphs) replayed against their eager runs, bit for bit.
 
 Needs an NVIDIA GPU and nvcc; every test skips without a CUDA device.
 Imports only the port, torch and numpy (the machine with the card has no
@@ -642,3 +643,40 @@ def test_dft_products_hold_their_precision(dev):
         assert m.fp32_precision == "tf32"
     finally:
         m.fp32_precision = prev
+
+
+# ---------------------------------------------------------------- graphs
+
+@pytest.mark.parametrize("name,c", [("k1_carried", 4), ("k1_carried", 256),
+                                    ("k2_per_epoch", 8),
+                                    ("reference_scan", 8)])
+def test_replayed_program_equals_eager(dev, monkeypatch, name, c):
+    """The captured programs (utils.graphs) against their eager runs
+    (probes/graph_replay.py at 200-epoch blocks): every returned leaf bit
+    for bit, block n's results unchanged by block n + 1, the counted
+    launches, a channel dropped recaptured."""
+    from stm32f4_sdr_gps_torch.probes import graph_replay as gr
+
+    monkeypatch.setattr(gr, "BLOCK", 200)
+    data = gr.scenario()
+    eager = gr.run(name, c, data, True)
+    replayed = gr.run(name, c, data, False)
+    gr.check(name, c, eager, replayed)
+
+
+def test_failed_capture_raises(dev):
+    """A program that syncs with the host inside cannot be captured: the
+    call raises, with no eager retry."""
+    from stm32f4_sdr_gps_torch.utils import graphs
+
+    @graphs.captured()
+    def syncs(x):
+        return x * x.sum().item()
+
+    captures = graphs.stats["captures"]
+    with pytest.raises(RuntimeError):
+        syncs(torch.ones(4, device=dev))
+    assert graphs.stats["captures"] == captures
+    with graphs.disable_capture():
+        assert torch.equal(syncs(torch.ones(4, device=dev)),
+                           torch.full((4,), 4.0, device=dev))

@@ -11,7 +11,8 @@ PKG = os.path.join(ROOT, "stm32f4_sdr_gps_torch")
 # ingest, checkpoint, RTCM and command line, its mesh and multi-process
 # runtime, the entry points, the profiler, the streaming soak, the
 # firmware-oracle suites, the robustness suites, the wire-to-fix run, and
-# the host-cost, capacity and sensitivity probes
+# the host-cost, capacity and sensitivity probes, and the captured
+# programs
 NEW_MODULES = ("track.aided_sync", "io.bits", "io.rtcm3", "signal.capture",
                "runtime.checkpoint", "__main__", "parallel.mesh",
                "parallel.streaming", "runtime.mesh_receiver",
@@ -20,7 +21,7 @@ NEW_MODULES = ("track.aided_sync", "io.bits", "io.rtcm3", "signal.capture",
                "utils.profiling", "probes.soak", "probes.firmware_parity",
                "probes.stress", "probes.wire_e2e", "probes.host_cost",
                "probes.capacity", "probes.sensitivity", "probes.ext_pll",
-               "probes.deep_cold")
+               "probes.deep_cold", "utils.graphs")
 
 _PROBE = r"""
 import importlib, pkgutil, sys
