@@ -211,7 +211,7 @@ before the result line):
    29 s capture_gen wire capture uploaded and conditioned on the card a
    256-epoch chunk at a time, cold start and every block from device
    memory, the last fix within 500 m, every block a CUDA tensor, no
-   samples copied from the host (``epochs_on.host_copies``), K1 on every
+   samples copied from the host (``upload.samples``), K1 on every
    block;
 24. the system ceiling (``probes/capacity.py``): phase 3's 32-channel,
    1000-epoch scenario tiled to 32, 64, 128, 256, 512 and 1024 channels
@@ -704,17 +704,17 @@ K1_MODES = {
 
 def _reset_counts():
     """Every kernel's launch count, every plain version's call count and
-    the count of samples copied from the host (``epochs_on.host_copies``)
-    to 0."""
-    from stm32f4_sdr_gps_torch.acquire.engine import epochs_on
+    the count of samples copied from the host (``utils.profiling``'s
+    ``upload.samples``) to 0."""
     from stm32f4_sdr_gps_torch.ops import epl
     from stm32f4_sdr_gps_torch.ops import track_scan as ts
     from stm32f4_sdr_gps_torch.probes import corr_bank as cb
+    from stm32f4_sdr_gps_torch.utils import profiling
 
     for mod, _, _ in _roll_probes():
         for fn in set(mod.KERNELS.values()):
             fn.launches = 0
-    epochs_on.host_copies = 0
+    profiling.counters.pop("upload.samples", None)
     ts.track_scan_cuda.launches = 0
     ts.track_scan_cuda.by_mode.clear()
     ts.track_scan_reference.calls = 0
@@ -2581,8 +2581,8 @@ def wire_phase(words, truth):
     on the card, no samples copied from the host (``epochs_on``'s numpy
     branch never taken), K1 on every block and nothing else.  Returns the
     run's result."""
-    from stm32f4_sdr_gps_torch.acquire.engine import epochs_on
     from stm32f4_sdr_gps_torch.probes import wire_e2e
+    from stm32f4_sdr_gps_torch.utils import profiling
 
     _reset_counts()
     out, rx = wire_e2e.run(words, truth, cib=WIRE["cib"])
@@ -2592,9 +2592,10 @@ def wire_phase(words, truth):
         fail(f"[wire] the receiver ran on {rx.device}")
     if not out["pass"]:
         fail(f"[wire] no pass: {out}")
-    if out["blocks_on_device"] != out["blocks"] or epochs_on.host_copies:
+    copies = profiling.counters.get("upload.samples", 0)
+    if out["blocks_on_device"] != out["blocks"] or copies:
         fail(f"[wire] {out['blocks_on_device']} of {out['blocks']} blocks "
-             f"were CUDA tensors; {epochs_on.host_copies} host copies")
+             f"were CUDA tensors; {copies} host copies")
     _k1_only("wire", counts, out["blocks"])
     print(f"[wire] {WIRE['duration_ms'] / 1e3:.0f} s wire capture to a fix "
           f"on the card: last fix {out['fix_error_m_last']:.2f} m, "

@@ -34,7 +34,8 @@ from ..ops.correlate import (
     unpack_code_table,
 )
 from ..ops.wipeoff import doppler_rotations
-from ..utils.device import card_or_cpu
+from ..utils.device import card_or_cpu, readback, upload
+from ..utils.profiling import count
 
 
 @dataclass
@@ -299,20 +300,17 @@ def epochs_on(samples, e: int, s: int, device) -> torch.Tensor:
     on ``device``.
 
     ``samples`` is a flat numpy array or a flat ``torch.Tensor``.  A numpy
-    array takes one host-to-device copy (counted in ``host_copies``).  A
+    array takes one host-to-device copy (counted as an ``upload`` and an
+    ``upload.samples``, ``utils.profiling.count``).  A
     complex64 tensor already on ``device`` is used in place: the result
     is a view of it, with no copy.  Any other tensor is cast to complex64
     and moved to ``device`` explicitly, as the numpy path casts."""
     if isinstance(samples, torch.Tensor):
         return samples[: e * s].reshape(e, s).to(device=device,
                                                  dtype=torch.complex64)
-    epochs_on.host_copies += 1
-    return torch.as_tensor(
-        np.ascontiguousarray(samples[: e * s].reshape(e, s),
-                             dtype=np.complex64), device=device)
-
-
-epochs_on.host_copies = 0
+    count("upload.samples")
+    return upload(np.ascontiguousarray(samples[: e * s].reshape(e, s),
+                                       dtype=np.complex64), device)
 
 
 def acquire(
@@ -340,26 +338,26 @@ def acquire(
         raise ValueError(f"need at least {e} epochs of samples")
     epochs = epochs_on(samples, e, s, device)
     bins = np.asarray(cfg.doppler_bins_hz, dtype=np.float32)
-    bins_d = torch.as_tensor(bins, device=device)
+    bins_d = upload(bins, device)
     rot = doppler_rotations(bins_d, s, plan.sample_rate_hz)
     dft = None
     if cfg.use_matmul_dft:
         # twiddle tables made on the device, the codes shipped bit-packed
         # and their spectrum taken as a product
         dft = dft_tables_device(s, device=device)
-        packed = torch.as_tensor(pack_code_bits(prns, plan), device=device)
+        packed = upload(pack_code_bits(prns, plan), device)
         cfc = code_spectrum_conj_matmul(unpack_code_table(packed, s), *dft)
     else:
         cfc = code_fft_conj(prns, plan, device=device)
     keep = _hint_mask(prns, bins, doppler_hints_hz, cfg)
-    keep_d = None if keep is None else torch.as_tensor(keep, device=device)
+    keep_d = None if keep is None else upload(keep, device)
     out = _acquire_fused(epochs, cfc, rot, bins_d, keep_d, dft,
                          coherent=cfg.coherent_epochs,
                          n_hyp=max(1, int(cfg.edge_hypotheses)),
                          dft_precision=cfg.dft_precision,
                          excl=exclusion_lags(cfg, plan))
-    return _results_from_vectors(
-        [v.cpu().numpy() for v in out], prns, plan, cfg)
+    return _results_from_vectors([readback(v) for v in out], prns, plan,
+                                 cfg)
 
 
 def _acquire_fused(epochs, cfc, rot, bins, keep, dft, coherent: int,

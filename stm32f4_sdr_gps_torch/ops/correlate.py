@@ -18,7 +18,7 @@ import torch
 
 from ..config import CODE_LENGTH, CODE_RATE_HZ, SignalPlan
 from ..signal.ca_code import ca_code_bits
-from ..utils.device import card_or_cpu
+from ..utils.device import card_or_cpu, upload
 
 
 def sampled_code_table(prns, plan: SignalPlan, dtype=np.float32) -> np.ndarray:
@@ -40,7 +40,7 @@ def code_fft_conj(prns, plan: SignalPlan, device="cuda") -> torch.Tensor:
     ``device``: the card unless the caller asks for the CPU; raises
     without a card."""
     device = card_or_cpu(device, "code_fft_conj")
-    table = torch.as_tensor(sampled_code_table(prns, plan), device=device)
+    table = upload(sampled_code_table(prns, plan), device)
     return torch.fft.fft(table, dim=-1).conj().resolve_conj()
 
 

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..config import CODE_LENGTH
+from ..utils.device import upload
 from .wipeoff import fma
 
 
@@ -29,7 +30,7 @@ def sample_replicas(
     i.e. uses a negative offset).
     """
     dev = code_table.device
-    lags = torch.as_tensor(lag_offsets_chips, dtype=torch.float32, device=dev)
+    lags = upload(lag_offsets_chips, dev, torch.float32)
     k = torch.arange(num_samples, dtype=torch.float32, device=dev)
     # one fused multiply-add per sample, as the JAX reference computes
     # it: at 2 samples/chip many samples sit within an ulp of a chip edge,

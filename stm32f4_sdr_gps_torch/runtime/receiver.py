@@ -65,8 +65,8 @@ from ..track.pretrack import refine_code_phase
 from ..track.scan import track_block
 from ..track.state import TrackOutputs, TrackState, concat_states, init_state
 from ..utils import graphs
-from ..utils.device import card_or_cpu
-from ..utils.profiling import Profiler
+from ..utils.device import card_or_cpu, readback, upload
+from ..utils.profiling import Profiler, count
 from .digest import cn0_from_moments, digest_block, digest_to_host
 
 #: A capture as every stage takes it: a flat complex numpy array (copied
@@ -294,7 +294,7 @@ class Receiver:
         fractional-phase reference scan."""
         if self.config.track.use_pallas or self._kernel_scan:
             table_np = upsampled_code_doubled(table_np)
-        return torch.as_tensor(table_np, device=self.device)
+        return upload(table_np, self.device)
 
     def _to_device(self, samples: Samples, n_epochs: int) -> torch.Tensor:
         """(n_epochs, S) complex64 block on the device: a numpy array is
@@ -307,12 +307,13 @@ class Receiver:
         """The block as the tracking programs take it.  On the card a
         numpy block stays on the host, as a (n_epochs, S) complex64
         tensor: the program copies it once, straight into its static
-        input (utils.graphs; counted in ``epochs_on.host_copies``).  A
-        tensor, or any block of a CPU receiver, as ``_to_device`` gives
-        it."""
+        input (utils.graphs; counted as an ``upload`` and an
+        ``upload.samples``).  A tensor, or any block of a CPU receiver, as
+        ``_to_device`` gives it."""
         if isinstance(samples, np.ndarray) and self.device.type == "cuda":
             spe = self.config.plan.samples_per_epoch
-            epochs_on.host_copies += 1
+            count("upload")
+            count("upload.samples")
             return torch.from_numpy(np.ascontiguousarray(
                 samples[: n_epochs * spe].reshape(n_epochs, spe),
                 dtype=np.complex64))
@@ -346,47 +347,53 @@ class Receiver:
     def start_tracking(self, samples: Samples,
                        start_epoch: int = 0) -> None:
         """Stages 2-3 init: fine Doppler, pre-track refinement, tracking
-        state."""
-        cfg = self.config
-        live = [ch for ch in self.channels if ch.acq and ch.acq.detected]
-        if not live:
-            raise RuntimeError("no channels acquired")
-        prns = [ch.prn for ch in live]
-        self.standby_channels = [
-            ch for ch in self.channels if ch not in live
-        ]
-        self.channels = live
-        table_np = ca_table_bipolar(prns)
-        phases = np.array([ch.acq.code_phase_chips for ch in live])
-        spe = cfg.plan.samples_per_epoch
-        # the weak-signal (coherent) mode needs a longer squared-prompt
-        # span to beat the squaring loss at ~30 dBHz
-        fine_epochs = 256 if cfg.track.coherent_pll else 32
-        e = min(fine_epochs, len(samples) // spe)
-        dev = self.device
-        with self.profiler.stage("pretrack").time():
-            # fine Doppler: long coherent FFT at the acquired code phase
-            # shrinks the handoff error from tens of Hz to ~1 Hz
-            dopplers = refine_doppler_device(
-                self._to_device(samples, e),
-                torch.as_tensor(table_np, device=dev),
-                torch.as_tensor(phases, dtype=torch.float32, device=dev),
-                torch.as_tensor([ch.acq.doppler_hz for ch in live],
-                                dtype=torch.float32, device=dev),
-                cfg.plan,
-            ).cpu().numpy().astype(np.float64)
-            refined = refine_code_phase(
-                samples, table_np, phases, dopplers, cfg.plan, cfg.track,
-                device=dev)
-        self.code_table_np = table_np
-        self.code_table = self._device_code_table(table_np)
-        self.track_state = init_state(
-            len(live), refined, dopplers, start_epoch=start_epoch,
-            window=cfg.track.pll_check_window, device=dev,
-        )
-        for ch in live:
-            ch.state_name = "TRACKING"
-            ch.last_healthy_ms = start_epoch
+        state.  The stage ``start_tracking`` spans the whole handoff;
+        ``pretrack`` inside it holds ``pretrack.doppler`` and
+        ``pretrack.code``."""
+        stage = self.profiler.stage
+        with stage("start_tracking").time():
+            cfg = self.config
+            live = [ch for ch in self.channels if ch.acq and ch.acq.detected]
+            if not live:
+                raise RuntimeError("no channels acquired")
+            prns = [ch.prn for ch in live]
+            self.standby_channels = [
+                ch for ch in self.channels if ch not in live
+            ]
+            self.channels = live
+            table_np = ca_table_bipolar(prns)
+            phases = np.array([ch.acq.code_phase_chips for ch in live])
+            spe = cfg.plan.samples_per_epoch
+            # the weak-signal (coherent) mode needs a longer squared-prompt
+            # span to beat the squaring loss at ~30 dBHz
+            fine_epochs = 256 if cfg.track.coherent_pll else 32
+            e = min(fine_epochs, len(samples) // spe)
+            dev = self.device
+            with stage("pretrack").time():
+                with stage("pretrack.doppler").time():
+                    # fine Doppler: long coherent FFT at the acquired code
+                    # phase shrinks the handoff error from tens of Hz to ~1 Hz
+                    dopplers = readback(refine_doppler_device(
+                        self._to_device(samples, e),
+                        upload(table_np, dev),
+                        upload(phases, dev, torch.float32),
+                        upload([ch.acq.doppler_hz for ch in live], dev,
+                               torch.float32),
+                        cfg.plan,
+                    )).astype(np.float64)
+                with stage("pretrack.code").time():
+                    refined = refine_code_phase(
+                        samples, table_np, phases, dopplers, cfg.plan,
+                        cfg.track, device=dev)
+            self.code_table_np = table_np
+            self.code_table = self._device_code_table(table_np)
+            self.track_state = init_state(
+                len(live), refined, dopplers, start_epoch=start_epoch,
+                window=cfg.track.pll_check_window, device=dev,
+            )
+            for ch in live:
+                ch.state_name = "TRACKING"
+                ch.last_healthy_ms = start_epoch
 
     @property
     def _digest_active(self) -> bool:

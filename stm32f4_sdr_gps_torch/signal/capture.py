@@ -23,7 +23,8 @@ import numpy as np
 import torch
 
 from ..config import REFERENCE_PLAN, SignalPlan
-from ..utils.device import card_or_cpu
+from ..utils.device import card_or_cpu, upload
+from ..utils.profiling import span
 
 REF_DECIMATION = 8  # 16.368 MHz -> 2.046 MHz
 
@@ -101,23 +102,26 @@ def reference_to_baseband_device(words, decimation: int = REF_DECIMATION,
     epochs (16368 samples = 1023 words) so the mix phase stays aligned.
     Only the packed words cross to the device: 2 046 bytes a millisecond
     instead of the 16x larger complex stream.
+
+    The call is the span ``condition`` (``utils.profiling``), which
+    holds host time only: the upload and the launches.  The kernels run
+    on after it returns, and finish inside the next readback.
     """
     device = card_or_cpu(device, "reference_to_baseband_device")
-    if isinstance(words, torch.Tensor):
-        w = words.to(device=device, dtype=torch.int32)
-    else:
-        w = torch.as_tensor(np.asarray(words, np.uint16), device=device
-                            ).to(torch.int32)
-    shifts = torch.arange(16, dtype=torch.int32, device=device)
-    bits = (w[:, None] >> shifts) & 1
-    signs = bits.to(torch.float32).reshape(-1) * 2.0 - 1.0
-    n = (signs.shape[0] // decimation) * decimation
-    signs = signs[:n]
-    # e^{-j*2*pi*(fs/4)*t} at t = k/fs is exactly (-j)^k
-    mix = torch.tensor([1, -1j, -1, 1j], dtype=torch.complex64,
-                       device=device)
-    y = signs.to(torch.complex64) * mix.repeat(n // 4)
-    return y.reshape(-1, decimation).sum(dim=1) * (2.0 / decimation)
+    with span("condition"):
+        if isinstance(words, torch.Tensor):
+            w = words.to(device=device, dtype=torch.int32)
+        else:
+            w = upload(np.asarray(words, np.uint16), device).to(torch.int32)
+        shifts = torch.arange(16, dtype=torch.int32, device=device)
+        bits = (w[:, None] >> shifts) & 1
+        signs = bits.to(torch.float32).reshape(-1) * 2.0 - 1.0
+        n = (signs.shape[0] // decimation) * decimation
+        signs = signs[:n]
+        # e^{-j*2*pi*(fs/4)*t} at t = k/fs is exactly (-j)^k
+        mix = upload([1, -1j, -1, 1j], device, torch.complex64)
+        y = signs.to(torch.complex64) * mix.repeat(n // 4)
+        return y.reshape(-1, decimation).sum(dim=1) * (2.0 / decimation)
 
 
 def read_capture(path: str, fmt: str = "auto") -> np.ndarray:

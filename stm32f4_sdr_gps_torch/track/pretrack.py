@@ -18,7 +18,7 @@ from ..acquire.engine import epochs_on
 from ..config import SignalPlan, TrackConfig
 from ..ops.replica import sample_replicas
 from ..ops.wipeoff import carrier_wipeoff
-from ..utils.device import card_or_cpu
+from ..utils.device import card_or_cpu, readback, upload
 
 
 def _pretrack_power(
@@ -68,14 +68,14 @@ def refine_code_phase(
     e = min(num_epochs or cfg.pre_track_epochs, len(samples) // s_cnt)
     epochs = epochs_on(samples, e, s_cnt, device)
     k = cfg.pre_track_zone_halfchips + 1
-    power = _pretrack_power(
+    power = readback(_pretrack_power(
         epochs,
-        torch.as_tensor(code_table, dtype=torch.float32, device=device),
-        torch.as_tensor(code_phase_chips, dtype=torch.float32, device=device),
-        torch.as_tensor(doppler_hz, dtype=torch.float32, device=device),
+        upload(code_table, device, torch.float32),
+        upload(code_phase_chips, device, torch.float32),
+        upload(doppler_hz, device, torch.float32),
         plan,
         k,
-    ).cpu().numpy()
+    ))
     best = power.argmax(axis=1)
     # parabolic interpolation around the peak (clamped at zone edges)
     refined = []

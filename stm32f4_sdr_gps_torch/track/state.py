@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from ..config import CODE_LENGTH, TrackConfig
-from ..utils.device import card_or_cpu
+from ..utils.device import card_or_cpu, upload
 
 
 class TrackState(NamedTuple):
@@ -107,8 +107,8 @@ def init_state(
         window = TrackConfig().pll_check_window
 
     def f32(v):
-        arr = np.asarray(np.broadcast_to(v, (c,)), dtype=np.float32)
-        return torch.tensor(arr, device=device)
+        return upload(np.array(np.broadcast_to(v, (c,)), np.float32),
+                      device)
 
     def full(v, dtype):
         return torch.full((c,), v, dtype=dtype, device=device)

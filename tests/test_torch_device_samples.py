@@ -6,8 +6,8 @@ the same samples gives identical results, bit for bit: ``acquire_all``
 alone, ``start_tracking`` alone, and ``Receiver.run`` (every channel's
 state, bits, Doppler, code phase and C/N0, and its ``framer.history``).
 A complex64 tensor on the receiver's device is used in place: no host
-copy (``epochs_on.host_copies``) and no device copy (the epochs are a
-view of it).  A complex128 tensor is cast, as the numpy path casts.
+copy (``utils.profiling``'s ``upload.samples`` counter) and no device
+copy (the epochs are a view of it).  A complex128 tensor is cast, as the numpy path casts.
 """
 
 import numpy as np
@@ -18,6 +18,7 @@ from stm32f4_sdr_gps_torch.acquire import engine
 from stm32f4_sdr_gps_torch.acquire.engine import epochs_on
 from stm32f4_sdr_gps_torch.config import ReceiverConfig, TrackConfig
 from stm32f4_sdr_gps_torch.runtime.receiver import Receiver
+from stm32f4_sdr_gps_torch.utils import profiling
 from stm32f4_sdr_gps_torch.track.pretrack import refine_code_phase
 from tests.test_receiver import CIB, PRNS, _make_capture
 
@@ -30,6 +31,10 @@ S = 2046
 def capture():
     x, _ = _make_capture(120 * CIB + 300 * CIB + 300, seed=11)
     return x
+
+
+def _sample_copies():
+    return profiling.counters.get("upload.samples", 0)
 
 
 def _receiver():
@@ -47,17 +52,17 @@ def _channel_record(ch):
 
 def test_epochs_on_uses_a_device_tensor_in_place(capture):
     t = torch.as_tensor(capture)
-    copies = epochs_on.host_copies
+    copies = _sample_copies()
     e = epochs_on(t, 10, S, "cpu")
-    assert epochs_on.host_copies == copies
+    assert _sample_copies() == copies
     assert e.shape == (10, S) and e.dtype == torch.complex64
     assert e.data_ptr() == t.data_ptr()
     np.testing.assert_array_equal(e.numpy(), capture[:10 * S].reshape(10, S))
     e128 = epochs_on(t.to(torch.complex128), 10, S, "cpu")
     assert e128.dtype == torch.complex64 and torch.equal(e128, e)
-    assert epochs_on.host_copies == copies
+    assert _sample_copies() == copies
     epochs_on(capture, 10, S, "cpu")
-    assert epochs_on.host_copies == copies + 1
+    assert _sample_copies() == copies + 1
 
 
 def test_acquire_and_refine_take_tensors(capture):
@@ -86,9 +91,9 @@ def test_acquire_all_and_start_tracking_alone(capture):
     t = torch.as_tensor(capture)
     assert rx_n.acquire_all(capture) == rx_t.acquire_all(t)
     rx_n.start_tracking(capture[10 * S:], start_epoch=10)
-    copies = epochs_on.host_copies
+    copies = _sample_copies()
     rx_t.start_tracking(t[10 * S:], start_epoch=10)
-    assert epochs_on.host_copies == copies
+    assert _sample_copies() == copies
     for a, b in zip(rx_n.track_state, rx_t.track_state):
         assert torch.equal(a, b)
 
@@ -96,9 +101,9 @@ def test_acquire_all_and_start_tracking_alone(capture):
 def test_run_from_a_tensor_equals_run_from_numpy(capture):
     rx_n, rx_t = _receiver(), _receiver()
     rep_n = rx_n.run(capture)
-    copies = epochs_on.host_copies
+    copies = _sample_copies()
     rep_t = rx_t.run(torch.as_tensor(capture))
-    assert epochs_on.host_copies == copies
+    assert _sample_copies() == copies
     assert rep_n.epochs_processed == rep_t.epochs_processed
     assert [_channel_record(c) for c in rep_n.channels] == \
         [_channel_record(c) for c in rep_t.channels]

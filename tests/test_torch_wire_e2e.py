@@ -24,10 +24,10 @@ import numpy as np
 import pytest
 import torch
 
-from stm32f4_sdr_gps_torch.acquire.engine import epochs_on
 from stm32f4_sdr_gps_torch.probes import soak, wire_e2e
 from stm32f4_sdr_gps_torch.runtime import native
 from stm32f4_sdr_gps_torch.runtime.receiver import Receiver
+from stm32f4_sdr_gps_torch.utils import profiling
 from stm32f4_sdr_gps_torch.signal.capture import reference_to_baseband
 
 torch.set_num_threads(2)
@@ -66,9 +66,9 @@ def test_chunked_capture_equals_host_conditioner():
 
 def test_wire_run_decodes_what_the_host_run_does(short_capture):
     words, truth = short_capture
-    copies = epochs_on.host_copies
+    copies = profiling.counters.get("upload.samples", 0)
     out, rx = wire_e2e.run(words, truth, cib=3, device="cpu")
-    assert epochs_on.host_copies == copies
+    assert profiling.counters.get("upload.samples", 0) == copies
     assert out["blocks"] == out["blocks_on_device"] > 5
     assert out["epochs_processed"] == 10 + 256 * out["blocks"]
     host = reference_to_baseband(native.unpack_bits16(words))
