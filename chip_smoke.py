@@ -6,13 +6,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero
 before the result line):
 
 1. card: the device name and ``nvidia-smi`` name/power-limit line;
-2. build: the five kernel libraries from csrc/ with nvcc, one nvcc each,
+2. build: the six kernel libraries from csrc/ with nvcc, one nvcc each,
    all started together (build seconds and ptxas lines): the tracking
    scan (K1), the per-epoch E/P/L correlator (K2), the correlator-bank
-   probe (P5), the epoch-cost probes (P6-P8) and the roll probes (P1-P4);
-   fails unless ptxas reports all 8 instantiations of K1's
-   track_scan_kernel, and every kernel of the P5, K2 and P6-P8
-   libraries, with 0 bytes of stack frame and no spills, and the roll
+   probe (P5), the epoch-cost probes (P6-P8), the roll probes (P1-P4) and
+   the handoff search (pretrack.cu); fails unless ptxas reports all 8
+   instantiations of K1's track_scan_kernel, and every kernel of the P5,
+   K2, P6-P8 and handoff libraries, with 0 bytes of stack frame and no
+   spills, and the roll
    library's two kernels also with 0 bytes of shared memory and no
    barriers (their registers, stack, spills and shared memory go into
    the kernels line);
@@ -267,6 +268,19 @@ before the result line):
    way; its times hold no host copy), and the card's busy share of two
    warm such blocks, eager and replayed, by phase 21's method.  Its
    records go into K1's and K2's entries of the kernels line.
+27. the handoff search's kernels (``probes/pretrack_kernels.py``) against
+   the plain loops they replace, on the card: the squared prompts at
+   (C = 4, E = 32), (32, 256) and (32, 512), the half-chip power at
+   (C = 4, K = 31, E = 20) and (32, 31, 100), on simulated 45 dBHz
+   captures: the Doppler bins and the code peaks equal, the prompts and
+   the power within 1e-5 of each channel's largest, one launch a prompts
+   call and two a power call with no plain-loop call; each call's device
+   time (queued) beside its bound, an empty kernel's and the plain
+   loop's time.  Every Receiver run of the phases before (4, 4b, 7, 11,
+   12, 13 and the others that run ``Receiver.run`` on the card) must
+   have handed over through these kernels and called no plain loop, and
+   phase 13's re-acquisitions too; the launch counts go into the
+   kernels line.
 
 Every tracking program runs as a captured CUDA graph by default
 (``utils/graphs.py``: the port's ``jax.jit``), and every phase's launch
@@ -330,7 +344,8 @@ def build():
             "epl_cuda": kernel_lib.epl_lib,
             "corr_bank_cuda": kernel_lib.corr_bank_lib,
             "forest_cuda": kernel_lib.forest_lib,
-            "roll_cuda": kernel_lib.roll_lib}
+            "roll_cuda": kernel_lib.roll_lib,
+            "pretrack_cuda": kernel_lib.pretrack_lib}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(fn) for fn in libs.values()]:
@@ -356,7 +371,11 @@ def build():
     ptxas = {"track_scan": _ptxas_record(k1)}
     for lib, kernels in (("epl_cuda", {"epl": "epl_kernel"}),
                          ("corr_bank_cuda", {"corr_bank_fma": "fma_kernel",
-                                             "corr_bank_mma": "mma_kernel"})):
+                                             "corr_bank_mma": "mma_kernel"}),
+                         ("pretrack_cuda", {
+                             "sq_prompts": "sq_prompt_kernel",
+                             "pretrack_corr": "pretrack_corr_kernel",
+                             "pretrack_sum": "pretrack_sum_kernel"})):
         log = kernel_lib.build_info[lib]["log"]
         every = kernel_lib.ptxas_report(log, "")
         bad = [k for k in every if k["stack"] or k["spill_stores"]
@@ -706,9 +725,11 @@ def _reset_counts():
     """Every kernel's launch count, every plain version's call count and
     the count of samples copied from the host (``utils.profiling``'s
     ``upload.samples``) to 0."""
+    from stm32f4_sdr_gps_torch.acquire import engine
     from stm32f4_sdr_gps_torch.ops import epl
     from stm32f4_sdr_gps_torch.ops import track_scan as ts
     from stm32f4_sdr_gps_torch.probes import corr_bank as cb
+    from stm32f4_sdr_gps_torch.track import pretrack
     from stm32f4_sdr_gps_torch.utils import profiling
 
     for mod, _, _ in _roll_probes():
@@ -720,6 +741,10 @@ def _reset_counts():
     ts.track_scan_reference.calls = 0
     epl.epl_correlate_cuda.launches = 0
     epl.epl_correlate_halfchip.calls = 0
+    engine.squared_prompts_cuda.launches = 0
+    engine.squared_prompts_plain.calls = 0
+    pretrack.pretrack_power_cuda.launches = 0
+    pretrack._pretrack_power.calls = 0
     cb.corr_bank_fma_cuda.launches = 0
     cb.corr_bank_mma_cuda.launches = 0
     for mod, _, _ in _forest_probes():
@@ -735,6 +760,28 @@ def _counts():
             "track_scan_plain": ts.track_scan_reference.calls,
             "epl": epl.epl_correlate_cuda.launches,
             "epl_plain": epl.epl_correlate_halfchip.calls}
+
+
+#: handoff kernel launches of each Receiver run and re-acquisition on the
+#: card, by phase label (phase 27 prints them)
+HANDOFF_LAUNCHES: dict = {}
+
+
+def _check_handoff(label, least=3):
+    """Fail unless the run since the last ``_reset_counts`` handed over
+    through the handoff search's kernels (at least ``least`` launches: one
+    squared-prompt launch and two power launches a handoff) and never
+    through their plain loops."""
+    from stm32f4_sdr_gps_torch.acquire import engine
+    from stm32f4_sdr_gps_torch.track import pretrack
+
+    launches = (engine.squared_prompts_cuda.launches
+                + pretrack.pretrack_power_cuda.launches)
+    plain = engine.squared_prompts_plain.calls + pretrack._pretrack_power.calls
+    if launches < least or plain:
+        fail(f"{label}: the handoff bypassed its kernels: {launches} kernel "
+             f"launches, {plain} plain-loop calls")
+    HANDOFF_LAUNCHES[label] = launches
 
 
 def _run_receiver(sc, track, label, acq=None):
@@ -761,6 +808,7 @@ def _run_receiver(sc, track, label, acq=None):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _counts()
+    _check_handoff(label)
     tracked = report.epochs_processed - cfg.acq.noncoherent_epochs
     blocks = rx.profiler.stages["track"].calls
     print(f"[{label}] Receiver.run: {wall:.2f} s wall for "
@@ -1608,6 +1656,8 @@ def reacquire():
                  f"sets {live}")
         if counts["track_scan_plain"] or counts["epl"]:
             fail(f"[reacq] {label}: counts {counts}")
+        # the cold start's handoff, and a second where a satellite joins
+        _check_handoff(f"reacq_{label}", 3 if label == "set" else 6)
         by = {ch.prn: ch for ch in report.channels}
         ok = (5 in by and 18 in by and by[18].state_name == "TRACKING"
               and abs(by[18].doppler_hz + 2400.0) < 15.0)
@@ -2905,6 +2955,26 @@ def graphs_phase():
     return rec
 
 
+# ---------------------------------------------------------------- phase 27
+
+def pretrack_phase():
+    """Phase 27: the handoff search's kernels against the plain loops
+    (probes/pretrack_kernels.py), with their times; and the handoff
+    launches of the phases before.  Returns its record."""
+    from stm32f4_sdr_gps_torch.probes import pretrack_kernels as pk
+
+    try:
+        cases = pk.run()
+    except pk.PretrackCheckError as e:
+        fail(f"[pretrack] {e}")
+    print(f"[pretrack] handoff kernel launches of the Receiver runs and "
+          f"re-acquisitions before, each with no plain-loop call: "
+          f"{HANDOFF_LAUNCHES}")
+    return {"cases": cases, "receiver_runs": dict(HANDOFF_LAUNCHES),
+            "launches": (sum(c["launches"] for c in cases.values())
+                         + sum(HANDOFF_LAUNCHES.values()))}
+
+
 def main():
     sys.path.insert(0, HERE)
     import stm32f4_sdr_gps_torch
@@ -3013,9 +3083,12 @@ def main():
     t0 = time.perf_counter()
     graphs_rec = graphs_phase()
     phase_s[26] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pretrack_rec = pretrack_phase()
+    phase_s[27] = time.perf_counter() - t0
     from stm32f4_sdr_gps_torch.utils import graphs
 
-    print(f"[phases] seconds of phases 11-26: "
+    print(f"[phases] seconds of phases 11-27: "
           f"{ {k: round(v, 1) for k, v in phase_s.items()} }")
     print(f"[graphs] this run: {graphs.stats['captures']} captures, "
           f"{graphs.stats['replays']} replays, {graphs.stats['evictions']} "
@@ -3099,6 +3172,23 @@ def main():
         "bound_ms_32ch": k2_b32[0],
         **ptxas["epl"],
         "graphs": graphs_rec["k2_per_epoch_32ch"],
+    }, {
+        "name": "pretrack",
+        "route": "cuda",
+        "source": src + "pretrack.cu",
+        "replaces": "none (the jax.jit lax.scan programs "
+                    "stm32f4_sdr_gps_tpu/acquire/engine.py:484 and "
+                    "stm32f4_sdr_gps_tpu/track/pretrack.py:25)",
+        "launches": pretrack_rec["launches"],
+        "max_rel_err": max(c["max_rel_err"]
+                           for c in pretrack_rec["cases"].values()),
+        **{k: pretrack_rec["cases"]["prompts_4x32"][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "cases": pretrack_rec["cases"],
+        "receiver_runs": pretrack_rec["receiver_runs"],
+        **{k: ptxas[k] for k in ("sq_prompts", "pretrack_corr",
+                                 "pretrack_sum")},
     }] + [{
         "name": f"corr_bank_{v}",
         "route": "cuda",

@@ -34,6 +34,7 @@ from ..ops.correlate import (
     unpack_code_table,
 )
 from ..ops.wipeoff import doppler_rotations
+from ..utils import graphs
 from ..utils.device import card_or_cpu, readback, upload
 from ..utils.profiling import count
 
@@ -409,6 +410,161 @@ def refine_doppler(
     return float(coarse_doppler_hz + freqs[k] / 2.0)
 
 
+def _code_rate(doppler_hz: torch.Tensor, plan: SignalPlan) -> torch.Tensor:
+    """(C,) code rate in chips a sample, carrier-aided so the replica does
+    not walk off the signal."""
+    return float(plan.chips_per_sample) * (1.0 + doppler_hz / FREQ_L1_HZ)
+
+
+def squared_prompts_plain(
+    epochs: torch.Tensor,            # (E, S) complex epochs
+    code_table: torch.Tensor,        # (C, 1023) bipolar codes
+    code_phase_chips: torch.Tensor,  # (C,) code phase at epochs[0]
+    doppler_hz: torch.Tensor,        # (C,) coarse Doppler
+    plan: SignalPlan,
+) -> torch.Tensor:
+    """(E, C) complex64 prompt of each epoch at the acquired code phase,
+    advanced by the carrier-aided code rate from epoch to epoch, with the
+    carrier rotated off at the coarse Doppler: the plain version of
+    :func:`squared_prompts_cuda`, a Python loop over the epochs."""
+    from ..ops.replica import sample_replicas
+    from ..ops.wipeoff import carrier_wipeoff
+
+    e, s = epochs.shape
+    code_rate = _code_rate(doppler_hz, plan)
+    chips_per_epoch = code_rate * s
+    phase = torch.zeros_like(doppler_hz)
+    cp = code_phase_chips
+    prompts = []
+    for t in range(e):
+        reps = sample_replicas(code_table, cp, code_rate, s, (0.0,))[:, 0]
+        y, phase = carrier_wipeoff(epochs[t], doppler_hz, phase,
+                                   plan.sample_rate_hz)
+        prompts.append((y * reps).sum(-1))          # (C,)
+        cp = torch.remainder(cp + chips_per_epoch, 1023.0)
+    squared_prompts_plain.calls += 1
+    return torch.stack(prompts)
+
+
+squared_prompts_plain.calls = 0
+
+
+#: samples an epoch the handoff search kernels take at most (256 threads
+#: of 8 samples, csrc/pretrack.cuh)
+HANDOFF_MAX_SAMPLES = 2048
+
+
+def check_handoff_inputs(epochs, code_table, code_phase_chips, doppler_hz):
+    """Raise on what the handoff search kernels (csrc/pretrack.cu) and
+    their host build do not take: (E, S) complex64 epochs with E >= 1 and
+    1 <= S <= HANDOFF_MAX_SAMPLES, a (C, 1023) float32 code table and (C,)
+    float32 code phases and Dopplers, all contiguous on one device."""
+    if (epochs.dim() != 2 or epochs.dtype != torch.complex64
+            or epochs.shape[0] < 1
+            or not 1 <= epochs.shape[1] <= HANDOFF_MAX_SAMPLES):
+        raise ValueError(f"epochs: want (E, S) complex64 with E >= 1 and "
+                         f"1 <= S <= {HANDOFF_MAX_SAMPLES}, got "
+                         f"{tuple(epochs.shape)} {epochs.dtype}")
+    if (code_table.dim() != 2 or code_table.shape[1] != 1023
+            or code_table.dtype != torch.float32):
+        raise ValueError(f"code_table: want (C, 1023) float32, got "
+                         f"{tuple(code_table.shape)} {code_table.dtype}")
+    c = code_table.shape[0]
+    for name, t in (("code_phase_chips", code_phase_chips),
+                    ("doppler_hz", doppler_hz)):
+        if t.shape != (c,) or t.dtype != torch.float32:
+            raise ValueError(f"{name}: want ({c},) float32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    for name, t in (("code_table", code_table),
+                    ("code_phase_chips", code_phase_chips),
+                    ("doppler_hz", doppler_hz)):
+        if t.device != epochs.device:
+            raise ValueError(f"{name} is on {t.device}, epochs on "
+                             f"{epochs.device}")
+    for name, t in (("epochs", epochs), ("code_table", code_table),
+                    ("code_phase_chips", code_phase_chips),
+                    ("doppler_hz", doppler_hz)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _s_over_fs(s: int, plan: SignalPlan) -> float:
+    """The epoch's duration as the carrier NCO steps it, rounded to
+    float32 (ops.wipeoff.carrier_wipeoff)."""
+    return float(np.float32(s / plan.sample_rate_hz))
+
+
+def squared_prompts_cuda(epochs, code_table, code_phase_chips, doppler_hz,
+                         plan: SignalPlan):
+    """:func:`squared_prompts_plain` on the card: every epoch of every
+    channel in one launch of the squared-prompt kernel (csrc/pretrack.cu),
+    with no host synchronisation.  ``squared_prompts_cuda.launches``
+    counts kernel launches (a replayed graph adds those its capture holds,
+    utils.graphs)."""
+    from ..ops.kernel_lib import pretrack_lib
+
+    if not epochs.is_cuda:
+        raise ValueError("squared_prompts_cuda needs CUDA tensors")
+    check_handoff_inputs(epochs, code_table, code_phase_chips, doppler_hz)
+    e, s = epochs.shape
+    c = code_table.shape[0]
+    out = torch.empty((e, c), dtype=torch.complex64, device=epochs.device)
+    if c == 0:
+        return out
+    rate = _code_rate(doppler_hz, plan)
+    lib = pretrack_lib()
+    with torch.cuda.device(epochs.device):
+        stream = torch.cuda.current_stream(epochs.device).cuda_stream
+        rc = lib.sq_prompts_launch(
+            epochs.data_ptr(), code_table.data_ptr(),
+            code_phase_chips.data_ptr(), rate.data_ptr(),
+            doppler_hz.data_ptr(), out.data_ptr(), e, c, s,
+            _s_over_fs(s, plan), plan.sample_rate_hz, stream)
+    if rc != 0:
+        raise RuntimeError(f"squared-prompt kernel launch failed: CUDA "
+                           f"error {rc}")
+    squared_prompts_cuda.launches += 1
+    return out
+
+
+squared_prompts_cuda.launches = 0
+graphs.count_launches(squared_prompts_cuda)
+
+
+def squared_prompts_host(epochs, code_table, code_phase_chips, doppler_hz,
+                         plan: SignalPlan):
+    """The squared-prompt kernel's arithmetic built for the host with g++
+    (csrc/pretrack_host.cpp) on CPU tensors, summed in the kernel's order:
+    the check of the CUDA source on a machine without a GPU."""
+    from ..ops.kernel_lib import host_lib
+
+    if epochs.device.type != "cpu":
+        raise ValueError("squared_prompts_host needs CPU tensors")
+    check_handoff_inputs(epochs, code_table, code_phase_chips, doppler_hz)
+    e, s = epochs.shape
+    c = code_table.shape[0]
+    out = torch.empty((e, c), dtype=torch.complex64)
+    rate = _code_rate(doppler_hz, plan)
+    host_lib().sq_prompts_host(
+        epochs.data_ptr(), code_table.data_ptr(),
+        code_phase_chips.data_ptr(), rate.data_ptr(), doppler_hz.data_ptr(),
+        out.data_ptr(), e, c, s, _s_over_fs(s, plan), plan.sample_rate_hz)
+    return out
+
+
+def squared_prompts(epochs, code_table, code_phase_chips, doppler_hz,
+                    plan: SignalPlan):
+    """(E, C) complex64 prompts of the squared-prompt Doppler search: the
+    kernel for CUDA tensors, its plain version for CPU tensors."""
+    if epochs.is_cuda:
+        return squared_prompts_cuda(epochs, code_table, code_phase_chips,
+                                    doppler_hz, plan)
+    if epochs.device.type == "cpu":
+        return squared_prompts_plain(epochs, code_table, code_phase_chips,
+                                     doppler_hz, plan)
+    raise ValueError(f"no squared-prompt search for device {epochs.device}")
+
+
 def _squared_prompt_bins(
     epochs: torch.Tensor,            # (E, S) complex epochs, on the device
     code_table: torch.Tensor,        # (C, 1023) bipolar codes
@@ -420,28 +576,14 @@ def _squared_prompt_bins(
     8 * E bins.
 
     Per epoch, the prompt correlation at the acquired code phase (code
-    rate carrier-aided so the replica does not walk off the signal); then
-    the FFT of the squared prompts (squaring strips the BPSK nav bits, so
-    the tone sits at 2*df), zero-padded 8x, and its argmax."""
-    from ..ops.replica import sample_replicas
-    from ..ops.wipeoff import carrier_wipeoff
-
-    e, s = epochs.shape
-    doppler_hz = doppler_hz.to(torch.float32)
-    code_rate = (
-        float(plan.chips_per_sample) * (1.0 + doppler_hz / FREQ_L1_HZ)
-    )                                               # (C,)
-    chips_per_epoch = code_rate * s
-    phase = torch.zeros_like(doppler_hz)
-    cp = code_phase_chips.to(torch.float32)
-    prompts = []
-    for t in range(e):
-        reps = sample_replicas(code_table, cp, code_rate, s, (0.0,))[:, 0]
-        y, phase = carrier_wipeoff(epochs[t], doppler_hz, phase,
-                                   plan.sample_rate_hz)
-        prompts.append((y * reps).sum(-1))          # (C,)
-        cp = torch.remainder(cp + chips_per_epoch, 1023.0)
-    prompts = torch.stack(prompts)                  # (E, C)
+    rate carrier-aided so the replica does not walk off the signal,
+    :func:`squared_prompts`); then the FFT of the squared prompts
+    (squaring strips the BPSK nav bits, so the tone sits at 2*df),
+    zero-padded 8x, and its argmax, all on the epochs' device."""
+    e = epochs.shape[0]
+    prompts = squared_prompts(epochs, code_table.to(torch.float32),
+                              code_phase_chips.to(torch.float32),
+                              doppler_hz.to(torch.float32), plan)  # (E, C)
     spec = torch.abs(torch.fft.fft(prompts * prompts, n=8 * e, dim=0))
     return torch.argmax(spec, dim=0)
 

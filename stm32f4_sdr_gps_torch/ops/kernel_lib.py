@@ -15,13 +15,15 @@ One library per kernel source:
   P5);
 * ``forest_lib``: the epoch-cost probes (``csrc/forest.cu``, P6-P8);
 * ``roll_lib``: the row rolls and K1's replica barrel (``csrc/roll.cu``,
-  the roll probes P1-P4).
+  the roll probes P1-P4);
+* ``pretrack_lib``: the handoff search's squared prompts and half-chip
+  power (``csrc/pretrack.cu``).
 
 The same arithmetic is also built with ``g++`` into a host library
 (``csrc/kernels_host.cpp``, ``csrc/forest_host.cpp``,
-``csrc/roll_host.cpp``) so the CPU tests can check the CUDA sources' loop
-update, correlator, probe bodies and roll lanes on a machine without a
-GPU.
+``csrc/roll_host.cpp``, ``csrc/pretrack_host.cpp``) so the CPU tests can
+check the CUDA sources' loop update, correlator, probe bodies, roll lanes
+and handoff search on a machine without a GPU.
 """
 
 from __future__ import annotations
@@ -183,6 +185,10 @@ _LAYOUT_ARGS = [_PTR] * 4 + [_INT] * 3
 _ROLL_ROWS_ARGS = [_PTR] * 3 + [_INT] * 3
 # u2, mc, es, e, p, l, R
 _BARREL_ARGS = [_PTR] * 6 + [_INT]
+# x, table, cp0, rate, dop, out, E, C, S, s_over_fs, fs
+_SQ_PROMPTS_ARGS = [_PTR] * 6 + [_INT] * 3 + [_FLOAT] * 2
+# x, table, cp, dop, corr, power, E, C, S, K, cps, s_over_fs, fs
+_PRETRACK_POWER_ARGS = [_PTR] * 6 + [_INT] * 4 + [_FLOAT] * 3
 
 
 # cached: the wrapper asks for its library on every launch, and finding
@@ -236,15 +242,26 @@ def roll_lib() -> ctypes.CDLL:
 
 
 @functools.cache
+def pretrack_lib() -> ctypes.CDLL:
+    """The handoff search's library (``sq_prompts_launch``,
+    ``pretrack_power_launch``)."""
+    return _load("pretrack_cuda", [_nvcc()] + NVCC_FLAGS, ["pretrack.cu"],
+                 {"sq_prompts_launch": _SQ_PROMPTS_ARGS + [_PTR],
+                  "pretrack_power_launch": _PRETRACK_POWER_ARGS + [_PTR]})
+
+
+@functools.cache
 def host_lib() -> ctypes.CDLL:
     """The host build of the kernels' arithmetic (``track_scan_host``,
     ``k1_channels_per_block``, ``watchdog_host``, ``code_phase_mod_host``,
     ``epl_host``, ``forest_chain_host``, ``forest_constructs_host``,
     ``forest_layout_host``, ``forest_layout_col_host``,
-    ``forest_trig_host``, ``roll_rows_host``, ``barrel_host``), built
-    with g++ at first use."""
+    ``forest_trig_host``, ``roll_rows_host``, ``barrel_host``,
+    ``pretrack_states_host``, ``pretrack_chip_host``, ``sq_prompts_host``,
+    ``pretrack_power_host``), built with g++ at first use."""
     return _load("kernels_host", ["g++"] + GXX_FLAGS,
-                 ["kernels_host.cpp", "forest_host.cpp", "roll_host.cpp"],
+                 ["kernels_host.cpp", "forest_host.cpp", "roll_host.cpp",
+                  "pretrack_host.cpp"],
                  {"track_scan_host": _TRACK_SCAN_ARGS,
                   "k1_channels_per_block": [_INT, _INT],
                   # wins, sgn, hold, trans, win, n
@@ -257,4 +274,11 @@ def host_lib() -> ctypes.CDLL:
                   "forest_layout_col_host": _LAYOUT_ARGS,
                   "forest_trig_host": [_PTR, _PTR, _INT, _INT],
                   "roll_rows_host": _ROLL_ROWS_ARGS,
-                  "barrel_host": _BARREL_ARGS})
+                  "barrel_host": _BARREL_ARGS,
+                  # cp0, rate, dop, cp_out, ph_out, E, C, S, s_over_fs
+                  "pretrack_states_host": [_PTR] * 5 + [_INT] * 3
+                  + [_FLOAT],
+                  # rate, k, base, out, n
+                  "pretrack_chip_host": [_PTR] * 4 + [_INT],
+                  "sq_prompts_host": _SQ_PROMPTS_ARGS,
+                  "pretrack_power_host": _PRETRACK_POWER_ARGS})

@@ -373,18 +373,21 @@ class Receiver:
                 with stage("pretrack.doppler").time():
                     # fine Doppler: long coherent FFT at the acquired code
                     # phase shrinks the handoff error from tens of Hz to ~1 Hz
-                    dopplers = readback(refine_doppler_device(
-                        self._to_device(samples, e),
-                        upload(table_np, dev),
-                        upload(phases, dev, torch.float32),
+                    table_d = upload(table_np, dev)
+                    phases_d = upload(phases, dev, torch.float32)
+                    dopplers_d = refine_doppler_device(
+                        self._to_device(samples, e), table_d, phases_d,
                         upload([ch.acq.doppler_hz for ch in live], dev,
                                torch.float32),
                         cfg.plan,
-                    )).astype(np.float64)
+                    )
+                    dopplers = readback(dopplers_d).astype(np.float64)
                 with stage("pretrack.code").time():
+                    # the code search on what the Doppler search left on
+                    # the device: nothing uploaded again
                     refined = refine_code_phase(
-                        samples, table_np, phases, dopplers, cfg.plan,
-                        cfg.track, device=dev)
+                        samples, table_d, phases, dopplers_d, cfg.plan,
+                        cfg.track, device=dev, code_phase_device=phases_d)
             self.code_table_np = table_np
             self.code_table = self._device_code_table(table_np)
             self.track_state = init_state(

@@ -1,9 +1,10 @@
 """The hand-written kernels on the card against their plain torch
 versions: the tracking scan (K1, in each of its modes), the per-epoch
 E/P/L correlator (K2), the correlator-bank probe (P5), the epoch-cost
-probes (P6-P8) and the roll probes (P1-P4); K1 once a position of a
-mesh that repeats the card; the captured tracking programs
-(utils.graphs) replayed against their eager runs, bit for bit.
+probes (P6-P8), the roll probes (P1-P4) and the handoff search's
+kernels (csrc/pretrack.cu); K1 once a position of a mesh that repeats
+the card; the captured tracking programs (utils.graphs) replayed against
+their eager runs, bit for bit.
 
 Needs an NVIDIA GPU and nvcc; every test skips without a CUDA device.
 Imports only the port, torch and numpy (the machine with the card has no
@@ -30,6 +31,9 @@ matmul DFT's products (torch calls, not kernels): "highest" within the
 float32 bound K * 2^-24 * (|a| @ |b|) of a float64 product and under 1 %
 of a TF32 product's error; "default" within the same bound of the
 float64 product of its bf16-rounded inputs, with a float32 result.
+The handoff search's prompts and power: rtol 1e-5 of each channel's
+largest, with equal Doppler bins and code peaks
+(tests/test_torch_pretrack_kernels.py says why).
 """
 
 import numpy as np
@@ -43,6 +47,7 @@ from stm32f4_sdr_gps_torch.ops import epl
 from stm32f4_sdr_gps_torch.ops import track_scan as ts
 from stm32f4_sdr_gps_torch.ops.epl import upsampled_code_doubled
 from stm32f4_sdr_gps_torch.probes import corr_bank as cb
+from stm32f4_sdr_gps_torch.probes import pretrack_kernels as pk
 from stm32f4_sdr_gps_torch.probes import (forest_chain, forest_constructs,
                                           forest_layout, mosaic_bisect,
                                           roll_wide)
@@ -680,3 +685,43 @@ def test_failed_capture_raises(dev):
     with graphs.disable_capture():
         assert torch.equal(syncs(torch.ones(4, device=dev)),
                            torch.full((4,), 4.0, device=dev))
+
+
+@pytest.mark.parametrize("case", list(pk.CASES))
+def test_pretrack_kernel_matches_plain_loop(dev, case):
+    kind, c, e = pk.CASES[case]
+    rec = pk.check(kind, pk.inputs(c, e, dev))
+    assert rec["launches"] == (1 if kind == "prompts" else 2)
+
+
+def test_cold_start_handoff_on_kernels(dev):
+    """A cold start on the card hands over through the two search
+    kernels: three launches, no plain loop, and the code search uploads
+    nothing."""
+    from stm32f4_sdr_gps_torch.acquire import engine
+    from stm32f4_sdr_gps_torch.runtime.receiver import Receiver
+    from stm32f4_sdr_gps_torch.track import pretrack
+    from stm32f4_sdr_gps_torch.utils import profiling
+
+    sats = [SimSat(prn=p, doppler_hz=d, code_phase_chips=q, cn0_dbhz=48.0)
+            for p, d, q in zip((2, 7, 15, 24), (-2500.0, 800.0, 3100.0,
+                                                -400.0),
+                               (120.3, 400.8, 650.1, 900.6))]
+    x, _ = simulate_capture(sats, num_epochs=60, seed=31)
+    rx = Receiver(ReceiverConfig(prns=(2, 7, 15, 24)), device=dev)
+    x_d = torch.as_tensor(x, device=dev)
+    before = (engine.squared_prompts_cuda.launches,
+              pretrack.pretrack_power_cuda.launches,
+              engine.squared_prompts_plain.calls,
+              pretrack._pretrack_power.calls)
+    rx.acquire_all(x_d)
+    n = len(profiling.spans)
+    rx.start_tracking(x_d[10 * 2046:], start_epoch=10)
+    after = (engine.squared_prompts_cuda.launches,
+             pretrack.pretrack_power_cuda.launches,
+             engine.squared_prompts_plain.calls,
+             pretrack._pretrack_power.calls)
+    assert [a - b for a, b in zip(after, before)] == [1, 2, 0, 0]
+    by = {r.name: r for r in list(profiling.spans)[n:]}
+    assert by["pretrack.code"].counts.get("upload", 0) == 0
+    assert len(rx.channels) == 4

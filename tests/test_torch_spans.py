@@ -271,6 +271,20 @@ def test_no_profiler_no_record_function(words, monkeypatch):
     assert {r.name for r in _since(t0)} == COLD_SPANS
 
 
+def test_handoff_copies(words):
+    """The handoff's copies: the Doppler search reads the refined Doppler
+    back once; the code search takes the code table, the code phases and
+    the refined Doppler where the Doppler search left them, uploads
+    nothing and reads the power back once.  (On the CPU the Doppler
+    search's plain loop also uploads the replica's lag each epoch; on the
+    card its kernel takes that loop's place.)"""
+    t0 = time.perf_counter()
+    _cold_start(words)
+    by = {r.name: r.counts for r in _since(t0)}
+    assert by["pretrack.doppler"]["readback"] == 1
+    assert by["pretrack.code"] == {"readback": 1}
+
+
 def test_copy_counters_equal_the_patched_calls(words, monkeypatch):
     seen = {"readback": 0, "upload": 0}
     cpu = torch.Tensor.cpu
