@@ -1,6 +1,6 @@
 """The capture generator: a scene's satellites as samples, made on the
 device in float64 and a few large calls a chunk, then copied once into
-host memory in the front end's own form.
+host memory in the front end's own form (``frontends/<kind>.py``).
 
 The physics follow the port's ``signal/simulator.py`` (code and carrier
 from one delay polynomial, 50 bps bits on code-period boundaries,
@@ -8,13 +8,8 @@ complex or real-IF signal at a calibrated C/N0 against unit-variance
 noise) and the wire packing ``native/capture_gen.cpp`` (1-bit signs,
 16 to a uint16 word, LSB first).  ``gen_np`` is a frozen NumPy copy of
 the noiseless signal and the packing that the CPU tests hold this module
-to.
-
-Front ends (the configuration's ``frontend``):
-
-* ``complex_baseband``: complex64 samples at ``sample_rate_hz``;
-* ``wire_1bit``: real IF at ``sample_rate_hz`` / ``if_hz``, signs
-  packed into uint16 SPI words.
+to.  A front end states ``complex`` (complex samples, or real IF at
+``if_hz``) and ``sample_rate_hz``; its module makes the host form.
 """
 
 from __future__ import annotations
@@ -25,6 +20,7 @@ import numpy as np
 import torch
 
 from . import physics as ph
+from . import spec
 
 
 def samples_per_epoch(fe: dict) -> int:
@@ -72,31 +68,31 @@ def pack_words(x: torch.Tensor) -> torch.Tensor:
 
 
 def synthesize(scene, fe: dict, n_epochs: int, seed: int, device,
-               chunk_epochs: int = 500) -> np.ndarray:
-    """The whole capture in host memory: complex64 samples, or uint16
-    words for a wire front end.  The noise comes from a generator on
-    ``device`` seeded with ``seed``; the same seed gives the same
-    capture."""
+               chunk_epochs: int = 500, frontend=None) -> np.ndarray:
+    """The whole capture in host memory, in the front end's host form:
+    ``frontend``'s, or that of ``frontends/<fe["kind"]>.py`` beside this
+    file.  The noise comes from a generator on ``device`` seeded with
+    ``seed``; the same seed gives the same capture."""
+    if frontend is None:
+        frontend = spec.frontend(fe["kind"])
     spe = samples_per_epoch(fe)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed) % (1 << 63))
-    if fe["kind"] == "wire_1bit":
-        out = np.empty(n_epochs * spe // 16, dtype=np.uint16)
-    else:
-        out = np.empty(n_epochs * spe, dtype=np.complex64)
+    upe = frontend.units_per_epoch(fe)
+    out = np.empty(n_epochs * upe, dtype=frontend.HOST_DTYPE)
+    raw = out.view(np.uint8)
+    per = upe * out.itemsize                        # bytes an epoch
     for e0 in range(0, n_epochs, chunk_epochs):
-        n = min(chunk_epochs, n_epochs - e0) * spe
+        k = min(chunk_epochs, n_epochs - e0)
+        n = k * spe
         s = signal_chunk(scene, fe, e0 * spe, n, device)
         if fe["complex"]:
             noise = torch.randn(n, 2, generator=gen, device=device,
                                 dtype=torch.float32) * math.sqrt(0.5)
             x = s.to(torch.complex64) + torch.view_as_complex(noise)
-            torch.from_numpy(out[e0 * spe: e0 * spe + n]).copy_(x)
         else:
             x = s.to(torch.float32) + torch.randn(
                 n, generator=gen, device=device, dtype=torch.float32)
-            w = pack_words(x)
-            w = (w - (w >= 32768).to(torch.int32) * 65536).to(torch.int16)
-            torch.from_numpy(out[e0 * spe // 16: (e0 * spe + n) // 16]
-                             .view(np.int16)).copy_(w)
+        host = frontend.to_host(x, fe).reshape(-1).view(torch.uint8)
+        torch.from_numpy(raw[e0 * per: (e0 + k) * per]).copy_(host)
     return out

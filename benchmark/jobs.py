@@ -6,18 +6,21 @@ module of the benchmark that calls the program.
   captures: the cold start as ``Receiver.run`` makes it, then
   ``process_block`` over ``block_epochs`` at a time.  ``ingest`` says how
   the samples reach it: ``host`` hands each block over as a slice of
-  complex64 host memory (a replayed file); ``wire_chunks`` uploads
-  ``chunk_epochs`` of SPI words at a time and conditions them on the
-  card, each block a view of them.
+  the front end's host form (a replayed file); ``wire_chunks`` uploads
+  ``chunk_epochs`` of it at a time and conditions them on the card, each
+  block a view of them.
 * ``coldstart``: a closed loop of cold starts, each a fresh ``Receiver``
   handed ``window_epochs`` of a capture at an offset drawn from the
   seed: ``acquire_all`` and ``start_tracking``, ended by a synchronise.
-  ``ingest`` says how the window reaches it: ``host`` hands it complex64
-  host memory; ``wire`` uploads its SPI words and conditions them on the
-  card first, inside the timed start (a receiver powering on).
+  ``ingest`` says how the window reaches it: ``host`` hands it the host
+  form; ``wire`` uploads it and conditions it on the card first, inside
+  the timed start (a receiver powering on).
 
-Each step returns the epochs it tracked; each finished job or start
-leaves a record of plain numbers for ``truth`` to judge.
+The front end's module (``frontends/<kind>.py``) says how long an epoch
+of the host form is and conditions it (``to_baseband``); ``host`` takes
+only a front end without that ingest, ``wire`` and ``wire_chunks`` only
+one with it.  Each step returns the epochs it tracked; each finished job
+or start leaves a record of plain numbers for ``truth`` to judge.
 """
 
 from __future__ import annotations
@@ -30,32 +33,104 @@ import torch
 
 from stm32f4_sdr_gps_torch.config import AcqConfig, ReceiverConfig, TrackConfig
 from stm32f4_sdr_gps_torch.runtime.receiver import Receiver
-from stm32f4_sdr_gps_torch.signal.capture import reference_to_baseband_device
 
-WORDS_PER_EPOCH = 1023
+#: samples an epoch of 2.046 MHz baseband, what ``to_baseband`` gives
 S = 2046
+
+#: the ``ingest`` values each traffic kind takes
+INGESTS = {"coldstart": ("host", "wire"), "replay": ("host", "wire_chunks")}
+
+#: ReceiverConfig fields that ``receiver.settings`` may not set: the
+#: configuration and the traffic state them elsewhere
+_NOT_SETTINGS = ("prns", "acq", "track", "solve_period_ms",
+                 "track_block_epochs")
+
+
+def _apply(obj, fields: dict, where: str):
+    """``obj`` with ``fields`` put in over its values (a JSON object over
+    a nested dataclass applies to it, a list becomes a tuple).  A field
+    that ``obj`` lacks raises TypeError naming it."""
+    known = {f.name for f in dataclasses.fields(obj) if f.init}
+    new = {}
+    for k, v in fields.items():
+        if k not in known:
+            raise TypeError(f"{where}: {type(obj).__name__} has no field "
+                            f"{k!r}")
+        cur = getattr(obj, k)
+        if isinstance(v, dict) and dataclasses.is_dataclass(cur):
+            v = _apply(cur, v, f"{where}.{k}")
+        elif isinstance(v, list):
+            v = tuple(v)
+        new[k] = v
+    return dataclasses.replace(obj, **new)
 
 
 def receiver_config(cfg: dict, traffic: dict,
                     control: bool = False) -> ReceiverConfig:
-    """The configuration's receiver.  Its control is the shortcut that
-    would tempt a later change: a replay solves half as often as the
-    configuration's cadence; a cold start acquires on half the
-    non-coherent epochs (and is judged on the acquisition's own,
-    unrefined Doppler, ``Run.judge(handoff="acq")``)."""
+    """The configuration's receiver: the program's defaults, under the
+    ``receiver`` object's ``acq``, ``track`` and ``settings`` (fields of
+    ``AcqConfig``, ``TrackConfig`` and ``ReceiverConfig``).  Its control
+    is the shortcut that would tempt a later change: a replay solves half
+    as often as the configuration's cadence; a cold start acquires on
+    half the configured non-coherent epochs (and is judged on the
+    acquisition's own, unrefined Doppler, ``Run.judge(handoff="acq")``)."""
     rc = cfg["receiver"]
+    settings = rc.get("settings", {})
+    fixed = sorted(set(settings) & set(_NOT_SETTINGS))
+    if fixed:
+        raise ValueError(f"receiver.settings sets {', '.join(fixed)}, "
+                         "which the configuration and traffic state")
+    cib = cfg["nav"].get("codes_in_bit", 20)
+    track = rc.get("track", {})
+    if track.get("codes_in_bit", cib) != cib:
+        raise ValueError(f"receiver.track.codes_in_bit "
+                         f"{track['codes_in_bit']} is not nav.codes_in_bit "
+                         f"{cib}")
     block = traffic.get("block_epochs", 1000)
-    acq = AcqConfig()
+    acq = _apply(AcqConfig(), rc.get("acq", {}), "receiver.acq")
     period = rc["solve_period_ms"]
     if control and traffic["kind"] == "coldstart":
         acq = dataclasses.replace(
             acq, noncoherent_epochs=acq.noncoherent_epochs // 2)
     elif control:
         period = 2 * max(period, block)
-    return ReceiverConfig(
+    return _apply(ReceiverConfig(
         prns=tuple(rc["prns"]), track_block_epochs=block,
         solve_period_ms=period, acq=acq,
-        track=TrackConfig(codes_in_bit=cfg["nav"].get("codes_in_bit", 20)))
+        track=_apply(TrackConfig(), dict(track, codes_in_bit=cib),
+                     "receiver.track")), settings, "receiver.settings")
+
+
+@dataclasses.dataclass(frozen=True)
+class Feed:
+    """How a cell's captures reach the receiver: ``per_epoch`` elements
+    of the host form a millisecond, and ``to_baseband``, the front end's
+    ingest on the card, or None where the host form is handed over as
+    it is."""
+    per_epoch: int
+    to_baseband: object
+
+
+def feed(frontend, fe: dict, traffic: dict) -> Feed:
+    """The traffic's ``ingest`` on the front end ``frontend`` (its
+    module, for the configuration's ``fe``).  Raises where the two do
+    not fit: ``host`` on a front end that needs its ``to_baseband``, or
+    ``wire`` / ``wire_chunks`` on one that has none."""
+    kind, mode = traffic["kind"], traffic.get("ingest", "host")
+    name = fe["kind"]
+    if mode not in INGESTS[kind]:
+        raise ValueError(f"a {kind} traffic takes ingest "
+                         f"{' or '.join(INGESTS[kind])}, not {mode!r}")
+    if mode == "host" and frontend.to_baseband is not None:
+        raise ValueError(f"ingest 'host' hands the receiver the host form "
+                         f"as it is, and front end {name!r} needs its "
+                         "to_baseband")
+    if mode != "host" and frontend.to_baseband is None:
+        raise ValueError(f"ingest {mode!r} conditions the host form with "
+                         f"the front end's to_baseband, and front end "
+                         f"{name!r} has none")
+    return Feed(frontend.units_per_epoch(fe),
+                None if mode == "host" else frontend.to_baseband)
 
 
 def _sync(device) -> None:
@@ -64,29 +139,32 @@ def _sync(device) -> None:
 
 
 class WireChunks:
-    """Whole-epoch ranges of a wire capture as complex64 baseband on
-    the device: ``chunk_epochs`` of words uploaded and conditioned at a
-    time (the port's ``probes/wire_e2e.ChunkedDeviceCapture``), the
-    chunks behind the cursor dropped.  ``condition_s`` is the host clock
-    around each upload and conditioning, ended by a synchronise."""
+    """Whole-epoch ranges of a capture's host form as complex64 baseband
+    on the device: ``chunk_epochs`` of it uploaded and conditioned at a
+    time by ``feed.to_baseband`` (the port's
+    ``probes/wire_e2e.ChunkedDeviceCapture``), the chunks behind the
+    cursor dropped.  ``condition_s`` is the host clock around each upload
+    and conditioning, ended by a synchronise."""
 
-    def __init__(self, words: np.ndarray, chunk_epochs: int, device):
+    def __init__(self, words: np.ndarray, chunk_epochs: int, feed: Feed,
+                 device):
         self.words = words
         self.chunk = chunk_epochs
+        self.per = feed.per_epoch
+        self.to_baseband = feed.to_baseband
         self.device = device
-        self.total_epochs = len(words) // WORDS_PER_EPOCH
+        self.total_epochs = len(words) // self.per
         self._chunks: dict = {}
         self.condition_s = 0.0
 
     def _get(self, i: int) -> torch.Tensor:
         c = self._chunks.get(i)
         if c is None:
-            w0 = i * self.chunk * WORDS_PER_EPOCH
-            w1 = min(w0 + self.chunk * WORDS_PER_EPOCH,
-                     self.total_epochs * WORDS_PER_EPOCH)
+            w0 = i * self.chunk * self.per
+            w1 = min(w0 + self.chunk * self.per,
+                     self.total_epochs * self.per)
             t0 = time.perf_counter()
-            c = reference_to_baseband_device(self.words[w0:w1],
-                                             device=self.device)
+            c = self.to_baseband(self.words[w0:w1], self.device)
             _sync(self.device)
             self.condition_s += time.perf_counter() - t0
             self._chunks[i] = c
@@ -116,14 +194,15 @@ class ReplayJob:
     """One job: a fresh Receiver over capture ``capture``."""
 
     def __init__(self, data, capture: int, rcfg: ReceiverConfig,
-                 traffic: dict, device):
+                 traffic: dict, feed: Feed, device):
         self.capture = capture
         self.rx = Receiver(rcfg, device=device)
         self.block = rcfg.track_block_epochs
         self.acq = rcfg.acq.noncoherent_epochs
+        self.spe = rcfg.plan.samples_per_epoch
         self.total = traffic["job_epochs"]
-        self.wire = (WireChunks(data, traffic["chunk_epochs"], device)
-                     if traffic["ingest"] == "wire_chunks" else None)
+        self.wire = (WireChunks(data, traffic["chunk_epochs"], feed, device)
+                     if feed.to_baseband is not None else None)
         self.data = data
         self.pos = None
 
@@ -134,7 +213,7 @@ class ReplayJob:
     def _samples(self, start: int, n: int):
         if self.wire is not None:
             return self.wire.epochs(start, n)
-        return self.data[start * S: (start + n) * S]
+        return self.data[start * self.spe: (start + n) * self.spe]
 
     def step(self) -> int:
         rx = self.rx
@@ -146,7 +225,8 @@ class ReplayJob:
             else:
                 x = self.data
             rx.acquire_all(x)
-            rx.start_tracking(x[self.acq * S:], start_epoch=self.acq)
+            rx.start_tracking(x[self.acq * self.spe:],
+                              start_epoch=self.acq)
             rx.epoch_cursor = self.acq
             self.pos = self.acq
             return 0
@@ -180,14 +260,14 @@ class ColdStart:
     and conditioning, ended by a synchronise (0 for host ingest)."""
 
     def __init__(self, data, capture: int, offset: int,
-                 rcfg: ReceiverConfig, traffic: dict, device):
+                 rcfg: ReceiverConfig, traffic: dict, feed: Feed, device):
         self.capture, self.offset = capture, offset
         self.rx = Receiver(rcfg, device=device)
         self.acq = rcfg.acq.noncoherent_epochs
+        self.spe = rcfg.plan.samples_per_epoch
         n = traffic["window_epochs"]
-        self.wire = traffic.get("ingest", "host") == "wire"
-        per = WORDS_PER_EPOCH if self.wire else S
-        self.x = data[offset * per: (offset + n) * per]
+        self.to_baseband = feed.to_baseband
+        self.x = data[offset * feed.per_epoch: (offset + n) * feed.per_epoch]
         self.device = torch.device(device)
         self.wall_s = None
         self.condition_s = 0.0
@@ -195,12 +275,12 @@ class ColdStart:
     def run(self) -> None:
         t0 = time.perf_counter()
         x = self.x
-        if self.wire:
-            x = reference_to_baseband_device(x, device=self.device)
+        if self.to_baseband is not None:
+            x = self.to_baseband(x, self.device)
             _sync(self.device)
             self.condition_s = time.perf_counter() - t0
         self.rx.acquire_all(x)
-        self.rx.start_tracking(x[self.acq * S:], start_epoch=self.acq)
+        self.rx.start_tracking(x[self.acq * self.spe:], start_epoch=self.acq)
         _sync(self.device)
         self.wall_s = time.perf_counter() - t0
 

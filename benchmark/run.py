@@ -64,6 +64,8 @@ class Run:
         self.tr = cell.traffic
         self.kind = self.tr["kind"]
         self.rcfg = jobs.receiver_config(cell.config, self.tr, control)
+        self.feed = jobs.feed(cell.frontend, cell.config["frontend"],
+                              self.tr)
         self.records: list = []
         self.ctx: dict = {"kind": self.kind}
 
@@ -77,7 +79,8 @@ class Run:
         self.scenes = [scene.build(cfg, self.seed, k, span * 1e-3)
                        for k in range(n_cap)]
         self.data = [gen.synthesize(sc, cfg["frontend"], span,
-                                    self.seed * 7919 + k, self.device)
+                                    self.seed * 7919 + k, self.device,
+                                    frontend=self.cell.frontend)
                      for k, sc in enumerate(self.scenes)]
         self._sync()
         t1 = time.perf_counter()
@@ -104,12 +107,12 @@ class Run:
         k = self.next_capture % len(self.data)
         self.next_capture += 1
         return self.jobs.ReplayJob(self.data[k], k, self.rcfg, self.tr,
-                                   self.device)
+                                   self.feed, self.device)
 
     def _coldstart(self, record: bool = True):
         cap, off = next(self.offsets)
         cs = self.jobs.ColdStart(self.data[cap], cap, off, self.rcfg,
-                                 self.tr, self.device)
+                                 self.tr, self.feed, self.device)
         cs.run()
         if record:
             self.records.append(cs.record())
@@ -203,7 +206,8 @@ class Run:
         rc = self.cell.config["receiver"]
         searched = tuple(rc["prns"])
         if self.kind == "coldstart":
-            lag = truth.frontend_lag_s(self.cell.config["frontend"])
+            lag = truth.frontend_lag_s(self.cell.config["frontend"],
+                                       self.cell.frontend)
             return truth.check_coldstart(recs, self.scenes, searched, lag,
                                          handoff)
         return truth.check_replay(recs, self.scenes, rc["solve_period_ms"],

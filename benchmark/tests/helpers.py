@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 
 from benchmark import spec
 
@@ -36,9 +37,17 @@ WIRE_COLDSTART = dict(COLDSTART, ingest="wire")
 
 
 def write_cell(root: str, traffic: dict, cfg: dict = None,
-               name: str = "t") -> spec.Cell:
-    """A BENCHMARK.json with one cell ``name`` in ``root``."""
+               name: str = "t", frontends: dict = None) -> spec.Cell:
+    """A BENCHMARK.json with one cell ``name`` in ``root``, beside a copy
+    of the benchmark's front ends and the modules ``frontends`` gives
+    (kind: source)."""
     os.makedirs(os.path.join(root, "traffic"), exist_ok=True)
+    shutil.copytree(os.path.join(HERE, "frontends"),
+                    os.path.join(root, "frontends"), dirs_exist_ok=True,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    for kind, source in (frontends or {}).items():
+        with open(os.path.join(root, "frontends", kind + ".py"), "w") as f:
+            f.write(source)
     with open(os.path.join(root, "t4.json"), "w") as f:
         json.dump(cfg or config(), f)
     with open(os.path.join(root, "traffic", name + ".json"), "w") as f:

@@ -1,6 +1,9 @@
 """The device generator against its frozen NumPy copy on a short
-capture, in both front ends, and the inputs as a function of the seed."""
+capture, in both front ends, the captures each front end's module makes
+against those made before the front ends were modules, and the inputs
+as a function of the seed."""
 
+import hashlib
 import json
 import os
 
@@ -8,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark import gen, gen_np, scene
+from benchmark import gen, gen_np, scene, spec, truth
 
 from . import helpers
 
@@ -66,6 +69,35 @@ def test_captures_follow_the_seed():
     assert a.dtype == np.uint16 and a.shape == (6 * 1023,)
     np.testing.assert_array_equal(a, b)
     assert (a != c).mean() > 0.5
+
+
+#: what the benchmark made of each committed configuration before its
+#: front ends were modules: 6 epochs at seed 2**31 + 77 (scene and
+#: noise) in chunks of 4 on the CPU; SHA-256 of the capture's bytes, its
+#: dtype and length, and ``truth.frontend_lag_s``
+MADE_BEFORE = {
+    "fw_max2769_4sat": (
+        "eeea5aff86cf8c2af481ac29457e12144d380101426a84c8f6d55981d0bc7871",
+        np.uint16, 6 * 1023, 2.1383186705767352e-07),
+    "iq2046k_allview32": (
+        "9723bf1162b891ddba14d71912e82ba5e596088681d065e3db0475ef0689c2e3",
+        np.complex64, 6 * 2046, 0.0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MADE_BEFORE))
+def test_front_ends_make_the_captures_made_before(name):
+    digest, dtype, n, lag = MADE_BEFORE[name]
+    cfg = _cfg(name)
+    fe = cfg["frontend"]
+    mod = spec.frontend(fe["kind"])
+    seed = 2 ** 31 + 77
+    sc = scene.build(cfg, seed, 0, 0.006)
+    x = gen.synthesize(sc, fe, 6, seed, "cpu", chunk_epochs=4, frontend=mod)
+    assert x.dtype == dtype and x.shape == (n,)
+    assert hashlib.sha256(x.tobytes()).hexdigest() == digest
+    assert mod.units_per_epoch(fe) * 6 == n
+    assert truth.frontend_lag_s(fe, mod) == lag
 
 
 def test_open_sky_follows_the_seed():

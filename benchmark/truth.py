@@ -37,13 +37,10 @@ from __future__ import annotations
 import numpy as np
 
 from . import physics as ph
+from . import spec
 
 #: grace after the fourth satellite's subframe 3 before a fix is due
 FIX_GRACE_S = 1.0
-
-
-#: the receiver's baseband rate: 2 samples a chip
-BASEBAND_HZ = 2.046e6
 
 
 def doppler_at(sat, epoch: float) -> float:
@@ -59,16 +56,11 @@ def code_phase_at(sat, t: float) -> float:
     return chips % ph.CODE_LENGTH
 
 
-def frontend_lag_s(fe: dict) -> float:
+def frontend_lag_s(fe: dict, frontend=None) -> float:
     """Time from an epoch's start to the centre of its first baseband
-    sample.  A wire front end's samples reach baseband summed ``fs /
-    2.046 MHz`` at a time (the firmware's integrate-and-dump), so each
-    baseband sample stands for the middle of its run; complex baseband
-    is taken as it is."""
-    if fe["complex"]:
-        return 0.0
-    d = int(round(fe["sample_rate_hz"] / BASEBAND_HZ))
-    return (d - 1) / 2.0 / fe["sample_rate_hz"]
+    sample, as the front end forms it: ``lag_s`` of ``frontend``, or of
+    ``frontends/<fe["kind"]>.py``."""
+    return (frontend or spec.frontend(fe["kind"])).lag_s(fe)
 
 
 def chip_error(a: float, b: float) -> float:
