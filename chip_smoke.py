@@ -6,14 +6,15 @@ Phases (each prints its own lines; any failure raises and exits non-zero
 before the result line):
 
 1. card: the device name and ``nvidia-smi`` name/power-limit line;
-2. build: the six kernel libraries from csrc/ with nvcc, one nvcc each,
-   all started together (build seconds and ptxas lines): the tracking
-   scan (K1), the per-epoch E/P/L correlator (K2), the correlator-bank
-   probe (P5), the epoch-cost probes (P6-P8), the roll probes (P1-P4) and
-   the handoff search (pretrack.cu); fails unless ptxas reports all 8
+2. build: the seven kernel libraries from csrc/ with nvcc, one nvcc
+   each, all started together (build seconds and ptxas lines): the
+   tracking scan (K1), the per-epoch E/P/L correlator (K2), the
+   correlator-bank probe (P5), the epoch-cost probes (P6-P8), the roll
+   probes (P1-P4), the handoff search (pretrack.cu) and the real-IF
+   ingest (if_resample.cu, R1); fails unless ptxas reports all 8
    instantiations of K1's track_scan_kernel, and every kernel of the P5,
-   K2, P6-P8 and handoff libraries, with 0 bytes of stack frame and no
-   spills, and the roll
+   K2, P6-P8, handoff and ingest libraries, with 0 bytes of stack frame
+   and no spills, and the roll
    library's two kernels also with 0 bytes of shared memory and no
    barriers (their registers, stack, spills and shared memory go into
    the kernels line);
@@ -281,6 +282,28 @@ before the result line):
    have handed over through these kernels and called no plain loop, and
    phase 13's re-acquisitions too; the launch counts go into the
    kernels line.
+28. the real-IF ingest kernel (``probes/if_resample.py``, R1) on the
+   SoftGNSS cell's own 266-epoch windows of int8 samples at 38.192 MHz
+   (seeded noise at 8 LSB twice, at 40 LSB once): the kernel, its plain
+   version on the card and the g++ build of its arithmetic each within
+   1e-5 of the float64 reference's RMS (signal/if_reference.py; the
+   plain version with half-precision taps, the control, must miss it),
+   the kernel equal to its host build bit for bit, one launch a window;
+   its device time a window (queued) beside its bytes bound, an empty
+   kernel's, the plain version's and the whole ingest's from host
+   memory.
+29. the SoftGNSS deployment's cold start on the main path
+   (``int8_coldstart_phase``): three 266-epoch windows of a 38.192 MHz
+   int8 capture of 8 satellites (the port's simulator at 50 dBHz,
+   quantised at 8 LSB) each through ``if_to_baseband_device``,
+   ``acquire_all`` over 32 PRNs and ``start_tracking``: no satellite
+   missed, every handoff within 32 Hz and 1.0 chip of the truth, one R1
+   launch a window (counted from zero before the run; the kernels line's
+   R1 ``launches``) and the handoff through its kernels alone; then two
+   starts with the acquired phases planted 0.75 chip either side of the
+   truth, each of which must search the Doppler again
+   (``pretrack.doppler_again``, two squared-prompt launches) and hand
+   over within the same limits.
 
 Every tracking program runs as a captured CUDA graph by default
 (``utils/graphs.py``: the port's ``jax.jit``), and every phase's launch
@@ -345,7 +368,8 @@ def build():
             "corr_bank_cuda": kernel_lib.corr_bank_lib,
             "forest_cuda": kernel_lib.forest_lib,
             "roll_cuda": kernel_lib.roll_lib,
-            "pretrack_cuda": kernel_lib.pretrack_lib}
+            "pretrack_cuda": kernel_lib.pretrack_lib,
+            "if_resample_cuda": kernel_lib.if_resample_lib}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(libs)) as pool:
         for fut in [pool.submit(fn) for fn in libs.values()]:
@@ -391,6 +415,19 @@ def build():
         print(f"[build] {lib}: {len(every)} kernels with 0 bytes of stack "
               f"frame and no spills; registers "
               f"{ {k['name']: k['registers'] for k in every} }")
+    # the ingest kernel is a template on L (1 and 3): both clean
+    log = kernel_lib.build_info["if_resample_cuda"]["log"]
+    rec = kernel_lib.ptxas_report(log, "if_resample_kernel")
+    bad = [k for k in rec if k["stack"] or k["spill_stores"]
+           or k["spill_loads"]]
+    if len(rec) != 2 or bad:
+        fail(f"if_resample_cuda: ptxas reports {len(rec)} of 2 "
+             f"if_resample_kernel instantiations, with a stack frame or "
+             f"spills: {bad}")
+    ptxas["if_resample"] = _ptxas_record(rec)
+    print(f"[build] if_resample_cuda: both if_resample_kernel "
+          f"instantiations with 0 bytes of stack frame and no spills; "
+          f"registers {sorted({k['registers'] for k in rec})}")
     # ptxas warns when it has to serialise the mma kernel's wgmmas
     ptxas["wgmma_serialized"] = "serialized" in kernel_lib.build_info[
         "corr_bank_cuda"]["log"]
@@ -729,6 +766,7 @@ def _reset_counts():
     from stm32f4_sdr_gps_torch.ops import epl
     from stm32f4_sdr_gps_torch.ops import track_scan as ts
     from stm32f4_sdr_gps_torch.probes import corr_bank as cb
+    from stm32f4_sdr_gps_torch.signal import capture
     from stm32f4_sdr_gps_torch.track import pretrack
     from stm32f4_sdr_gps_torch.utils import profiling
 
@@ -745,6 +783,7 @@ def _reset_counts():
     engine.squared_prompts_plain.calls = 0
     pretrack.pretrack_power_cuda.launches = 0
     pretrack._pretrack_power.calls = 0
+    capture.if_resample_cuda.launches = 0
     cb.corr_bank_fma_cuda.launches = 0
     cb.corr_bank_mma_cuda.launches = 0
     for mod, _, _ in _forest_probes():
@@ -2975,6 +3014,191 @@ def pretrack_phase():
                          + sum(HANDOFF_LAUNCHES.values()))}
 
 
+# ---------------------------------------------------------------- phase 28
+
+def if_resample_phase():
+    """Phase 28: the real-IF ingest kernel against its plain version, its
+    host build and the float64 reference (probes/if_resample.py), with
+    its times.  Returns its record."""
+    from stm32f4_sdr_gps_torch.probes import if_resample as ir
+
+    try:
+        return ir.run()
+    except ir.IfResampleCheckError as e:
+        fail(f"[if_resample] {e}")
+
+
+# ---------------------------------------------------------------- phase 29
+
+#: the SoftGNSS front end (benchmark/configs/softgnss_fs38_int8.json)
+INT8_FS, INT8_IF = 38192000.0, 9548000.0
+#: its quantiser (benchmark/frontends/real_int8.py): unit noise at 8 LSB
+INT8_SIGMA_LSB = 8.0
+#: 8 satellites in view (the source's channel count), 32 PRNs searched
+INT8_SATS = ((3, -3210.0, 101.3), (7, 1240.0, 877.9), (11, 4480.0, 12.6),
+             (14, -520.0, 640.2), (19, 2290.0, 333.3), (23, -4870.0, 1010.4),
+             (28, 150.0, 512.0), (31, -1760.0, 250.7))
+#: each window's first epoch in the capture: three cold starts
+INT8_OFFSETS = (0, 7, 20)
+INT8_WINDOW = 266
+#: planted acquired phases this far off the truth (chips): the second
+#: Doppler search's case
+INT8_PLANTED = (0.75, -0.75)
+
+
+def _int8_capture():
+    """The capture, int8 real IF at 38.192 MHz (the port's simulator at
+    50 dBHz, quantised as the front end does), and its truth."""
+    import numpy as np
+
+    from stm32f4_sdr_gps_torch.config import SignalPlan
+    from stm32f4_sdr_gps_torch.signal.simulator import SimSat, simulate_capture
+
+    plan = SignalPlan(sample_rate_hz=INT8_FS, if_freq_hz=INT8_IF,
+                      complex_input=False)
+    sats = [SimSat(prn=p, doppler_hz=d, code_phase_chips=c, cn0_dbhz=50.0,
+                   carrier_phase_cycles=0.1 * k)
+            for k, (p, d, c) in enumerate(INT8_SATS)]
+    x, truth = simulate_capture(sats, max(INT8_OFFSETS) + INT8_WINDOW, plan,
+                                seed=29, chunk_epochs=50)
+    q = np.clip(np.round(x * INT8_SIGMA_LSB), -127, 127).astype(np.int8)
+    return q, truth
+
+
+def _int8_errors(rx, truth, offset, lag_ms):
+    """Each live channel's (Doppler error Hz, code error chips) at the
+    handoff epoch, against the truth at the centre of the baseband
+    sample (``lag_ms`` after the epoch's start: the resampler's delay);
+    and the PRNs missed."""
+    import numpy as np
+
+    prns = [s.prn for s in truth.sats]
+    ts = rx.track_state
+    dop = ts.doppler_hz.cpu().double().numpy()
+    cp = ts.code_phase_chips.cpu().double().numpy()
+    errs = []
+    for i, ch in enumerate(rx.channels):
+        if ch.prn not in prns:
+            continue
+        k = prns.index(ch.prn)
+        epoch = offset + rx.config.acq.noncoherent_epochs
+        d = (cp[i] - truth.code_phase_at_epoch(k, epoch + lag_ms)) % 1023.0
+        errs.append((abs(dop[i] - truth.apparent_doppler_hz(k, epoch * 1e-3)),
+                     min(d, 1023.0 - d)))
+    missed = sorted(set(prns) - {ch.prn for ch in rx.channels})
+    return np.asarray(errs), missed
+
+
+def int8_coldstart_phase(device="cuda"):
+    """Phase 29: the SoftGNSS deployment's cold start on the main path,
+    as ``benchmark/jobs.ColdStart`` drives it: each window's int8
+    samples through ``if_to_baseband_device`` (one upload, one R1
+    launch), then ``Receiver.acquire_all`` over the 32 PRNs and
+    ``start_tracking``.  Each start must find the 8 satellites and hand
+    them over within the benchmark's 32 Hz and 1.0 chip, through the
+    handoff kernels alone (``_check_handoff``), with one R1 launch a
+    window, counted from zero just before the run.  Then the planted
+    starts: the acquired phases moved ``INT8_PLANTED`` chips off the
+    truth, where the Doppler search's replica holds too little of the
+    signal, must search the Doppler again (``pretrack.doppler_again``,
+    one more squared-prompt launch a start) and still hand over within
+    the limits.  Returns its record."""
+    import numpy as np
+    import torch
+
+    from stm32f4_sdr_gps_torch.acquire import engine
+    from stm32f4_sdr_gps_torch.config import ReceiverConfig
+    from stm32f4_sdr_gps_torch.runtime.receiver import Receiver
+    from stm32f4_sdr_gps_torch.signal import capture as cap
+    from stm32f4_sdr_gps_torch.utils import profiling
+
+    card = torch.device(device).type == "cuda"
+    t0 = time.perf_counter()
+    q, truth = _int8_capture()
+    made_s = time.perf_counter() - t0
+    spe_in = int(INT8_FS) // 1000
+    lag_ms = cap.if_resample_plan(INT8_FS).lag_s * 1e3
+    cfg = ReceiverConfig(prns=tuple(range(1, 33)))
+    acq = cfg.acq.noncoherent_epochs
+    spe = cfg.plan.samples_per_epoch
+
+    def start(offset, planted=None):
+        rx = Receiver(cfg, device=device)
+        x = cap.if_to_baseband_device(
+            q[offset * spe_in: (offset + INT8_WINDOW) * spe_in], INT8_FS,
+            INT8_IF, device)
+        rx.acquire_all(x)
+        if planted is not None:
+            prns = [s.prn for s in truth.sats]
+            for ch in rx.channels:
+                if ch.acq.detected and ch.prn in prns:
+                    ch.acq.code_phase_chips = float(
+                        (truth.code_phase_at_epoch(prns.index(ch.prn),
+                                                   offset + lag_ms)
+                         + planted) % 1023.0)
+        rx.start_tracking(x[acq * spe:], start_epoch=acq)
+        if card:
+            torch.cuda.synchronize()
+        return _int8_errors(rx, truth, offset, lag_ms)
+
+    start(INT8_OFFSETS[0])                       # warm: builds and caches
+    rec = {"capture_s": made_s, "starts": {}, "planted": {}}
+    if card:
+        _reset_counts()
+    again0 = profiling.counters.get("pretrack.doppler_again", 0)
+    for off in INT8_OFFSETS:
+        errs, missed = start(off)
+        rec["starts"][off] = {"missed": missed,
+                              "doppler_max_hz": float(errs[:, 0].max()),
+                              "code_max_chips": float(errs[:, 1].max())}
+        if missed or errs[:, 0].max() > 32.0 or errs[:, 1].max() > 1.0:
+            fail(f"[int8_coldstart] window at epoch {off}: missed {missed}, "
+                 f"Doppler {errs[:, 0].max():.2f} Hz, code "
+                 f"{errs[:, 1].max():.3f} chip (limits 32 Hz, 1.0 chip)")
+    rec["doppler_again"] = (profiling.counters.get("pretrack.doppler_again", 0)
+                            - again0)
+    if card:
+        rec["launches"] = cap.if_resample_cuda.launches
+        if rec["launches"] != len(INT8_OFFSETS):
+            fail(f"[int8_coldstart] {rec['launches']} R1 launches for "
+                 f"{len(INT8_OFFSETS)} windows")
+        _check_handoff("int8_coldstart", least=3 * len(INT8_OFFSETS))
+        rec["handoff_launches"] = HANDOFF_LAUNCHES["int8_coldstart"]
+        _reset_counts()
+    for off in INT8_PLANTED:
+        before = profiling.counters.get("pretrack.doppler_again", 0)
+        sq = engine.squared_prompts_cuda.launches
+        errs, missed = start(INT8_OFFSETS[0], planted=off)
+        again = profiling.counters.get("pretrack.doppler_again", 0) - before
+        r = {"doppler_again": again,
+             "doppler_max_hz": float(errs[:, 0].max()),
+             "code_max_chips": float(errs[:, 1].max())}
+        if card:
+            r["sq_prompt_launches"] = engine.squared_prompts_cuda.launches - sq
+        rec["planted"][off] = r
+        if (missed or not again or errs[:, 0].max() > 32.0
+                or errs[:, 1].max() > 1.0
+                or (card and r["sq_prompt_launches"] != 2)):
+            fail(f"[int8_coldstart] acquired phases {off:+.2f} chip off: "
+                 f"missed {missed}, {r}: want a second Doppler search (two "
+                 "squared-prompt launches) and 32 Hz, 1.0 chip")
+    if card:
+        # each planted start: two squared-prompt and two power launches
+        _check_handoff("int8_planted", least=4 * len(INT8_PLANTED))
+        if cap.if_resample_cuda.launches != len(INT8_PLANTED):
+            fail(f"[int8_coldstart] {cap.if_resample_cuda.launches} R1 "
+                 f"launches for {len(INT8_PLANTED)} planted windows")
+        rec["launches"] += cap.if_resample_cuda.launches
+        rec["planted_handoff_launches"] = HANDOFF_LAUNCHES["int8_planted"]
+    print(f"[int8_coldstart] {len(INT8_OFFSETS)} cold starts of 32 PRNs on "
+          f"int8 real IF at 38.192 MHz ({made_s:.1f} s to make the "
+          f"capture): {rec['starts']}; R1 launches "
+          f"{rec.get('launches')}, handoff launches "
+          f"{rec.get('handoff_launches')}, second searches "
+          f"{rec['doppler_again']}; planted {rec['planted']}")
+    return rec
+
+
 def main():
     sys.path.insert(0, HERE)
     import stm32f4_sdr_gps_torch
@@ -3086,9 +3310,15 @@ def main():
     t0 = time.perf_counter()
     pretrack_rec = pretrack_phase()
     phase_s[27] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ingest_rec = if_resample_phase()
+    phase_s[28] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    int8_rec = int8_coldstart_phase()
+    phase_s[29] = time.perf_counter() - t0
     from stm32f4_sdr_gps_torch.utils import graphs
 
-    print(f"[phases] seconds of phases 11-27: "
+    print(f"[phases] seconds of phases 11-29: "
           f"{ {k: round(v, 1) for k, v in phase_s.items()} }")
     print(f"[graphs] this run: {graphs.stats['captures']} captures, "
           f"{graphs.stats['replays']} replays, {graphs.stats['evictions']} "
@@ -3179,16 +3409,34 @@ def main():
         "replaces": "none (the jax.jit lax.scan programs "
                     "stm32f4_sdr_gps_tpu/acquire/engine.py:484 and "
                     "stm32f4_sdr_gps_tpu/track/pretrack.py:25)",
-        "launches": pretrack_rec["launches"],
+        "launches": (pretrack_rec["launches"]
+                     + HANDOFF_LAUNCHES["int8_coldstart"]
+                     + HANDOFF_LAUNCHES["int8_planted"]),
         "max_rel_err": max(c["max_rel_err"]
                            for c in pretrack_rec["cases"].values()),
         **{k: pretrack_rec["cases"]["prompts_4x32"][k]
            for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
         "cases": pretrack_rec["cases"],
-        "receiver_runs": pretrack_rec["receiver_runs"],
+        "receiver_runs": dict(HANDOFF_LAUNCHES),
         **{k: ptxas[k] for k in ("sq_prompts", "pretrack_corr",
                                  "pretrack_sum")},
+    }, {
+        "name": "if_resample",
+        "route": "cuda",
+        "source": src + "if_resample.cu",
+        "replaces": "none (no TPU kernel: the JAX package has no real-IF "
+                    "ingest; signal/capture.py:if_to_baseband_device)",
+        "launches": int8_rec["launches"],
+        "probe_launches": sum(c["launches"] for c in ingest_rec.values()),
+        "max_rel_err": max(c["max_rel_err"] for c in ingest_rec.values()),
+        **{k: ingest_rec["sigma_8_a"][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                     "roofline_pct", "ingest_ms")},
+        "library_ms": None,
+        "cases": ingest_rec,
+        "int8_coldstart": int8_rec,
+        **ptxas["if_resample"],
     }] + [{
         "name": f"corr_bank_{v}",
         "route": "cuda",

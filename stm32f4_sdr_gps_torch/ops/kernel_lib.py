@@ -17,13 +17,16 @@ One library per kernel source:
 * ``roll_lib``: the row rolls and K1's replica barrel (``csrc/roll.cu``,
   the roll probes P1-P4);
 * ``pretrack_lib``: the handoff search's squared prompts and half-chip
-  power (``csrc/pretrack.cu``).
+  power (``csrc/pretrack.cu``);
+* ``if_resample_lib``: the real-IF ingest's mix and polyphase resampler
+  (``csrc/if_resample.cu``, kernel R1).
 
 The same arithmetic is also built with ``g++`` into a host library
 (``csrc/kernels_host.cpp``, ``csrc/forest_host.cpp``,
-``csrc/roll_host.cpp``, ``csrc/pretrack_host.cpp``) so the CPU tests can
-check the CUDA sources' loop update, correlator, probe bodies, roll lanes
-and handoff search on a machine without a GPU.
+``csrc/roll_host.cpp``, ``csrc/pretrack_host.cpp``,
+``csrc/if_resample_host.cpp``) so the CPU tests can check the CUDA
+sources' loop update, correlator, probe bodies, roll lanes, handoff
+search and real-IF ingest on a machine without a GPU.
 """
 
 from __future__ import annotations
@@ -51,6 +54,7 @@ GXX_FLAGS = ["-O3", "-std=c++17", "-ffp-contract=off", "-D__host__=",
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _FLOAT = ctypes.c_float
+_LONG = ctypes.c_longlong
 #: compiler output, seconds and library path of the last build in this
 #: process, by name
 build_info: dict = {}
@@ -189,6 +193,8 @@ _BARREL_ARGS = [_PTR] * 6 + [_INT]
 _SQ_PROMPTS_ARGS = [_PTR] * 6 + [_INT] * 3 + [_FLOAT] * 2
 # x, table, cp, dop, corr, power, E, C, S, K, cps, s_over_fs, fs
 _PRETRACK_POWER_ARGS = [_PTR] * 6 + [_INT] * 4 + [_FLOAT] * 3
+# x, taps, out, n, frames, L, M, D, off_max
+_IF_RESAMPLE_ARGS = [_PTR] * 3 + [_LONG] + [_INT] * 5
 
 
 # cached: the wrapper asks for its library on every launch, and finding
@@ -251,6 +257,14 @@ def pretrack_lib() -> ctypes.CDLL:
 
 
 @functools.cache
+def if_resample_lib() -> ctypes.CDLL:
+    """The real-IF ingest's library (``if_resample_launch``)."""
+    return _load("if_resample_cuda", [_nvcc()] + NVCC_FLAGS,
+                 ["if_resample.cu"],
+                 {"if_resample_launch": _IF_RESAMPLE_ARGS + [_PTR]})
+
+
+@functools.cache
 def host_lib() -> ctypes.CDLL:
     """The host build of the kernels' arithmetic (``track_scan_host``,
     ``k1_channels_per_block``, ``watchdog_host``, ``code_phase_mod_host``,
@@ -258,10 +272,11 @@ def host_lib() -> ctypes.CDLL:
     ``forest_layout_host``, ``forest_layout_col_host``,
     ``forest_trig_host``, ``roll_rows_host``, ``barrel_host``,
     ``pretrack_states_host``, ``pretrack_chip_host``, ``sq_prompts_host``,
-    ``pretrack_power_host``), built with g++ at first use."""
+    ``pretrack_power_host``, ``if_resample_host``), built with g++ at
+    first use."""
     return _load("kernels_host", ["g++"] + GXX_FLAGS,
                  ["kernels_host.cpp", "forest_host.cpp", "roll_host.cpp",
-                  "pretrack_host.cpp"],
+                  "pretrack_host.cpp", "if_resample_host.cpp"],
                  {"track_scan_host": _TRACK_SCAN_ARGS,
                   "k1_channels_per_block": [_INT, _INT],
                   # wins, sgn, hold, trans, win, n
@@ -281,4 +296,5 @@ def host_lib() -> ctypes.CDLL:
                   # rate, k, base, out, n
                   "pretrack_chip_host": [_PTR] * 4 + [_INT],
                   "sq_prompts_host": _SQ_PROMPTS_ARGS,
-                  "pretrack_power_host": _PRETRACK_POWER_ARGS})
+                  "pretrack_power_host": _PRETRACK_POWER_ARGS,
+                  "if_resample_host": _IF_RESAMPLE_ARGS})

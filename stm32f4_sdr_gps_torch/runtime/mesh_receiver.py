@@ -35,14 +35,13 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..acquire.engine import AcqResult, refine_doppler_device
+from ..acquire.engine import AcqResult
 from ..parallel.mesh import Mesh, make_mesh
 from ..parallel.streaming import StreamingTracker, acquire_sharded
 from ..signal.ca_code import ca_table_bipolar
-from ..track.pretrack import refine_code_phase
 from ..track.state import TrackOutputs, TrackState, init_state
 from .digest import digest_to_host
-from .receiver import Receiver
+from .receiver import Receiver, handoff
 
 
 class MeshReceiver(Receiver):
@@ -118,17 +117,10 @@ class MeshReceiver(Receiver):
         e = min(256 if cfg.track.coherent_pll else 32, len(samples) // spe)
         dev = self.device
         with self.profiler.stage("pretrack").time():
-            dopplers = refine_doppler_device(
-                self._to_device(samples, e),
-                torch.as_tensor(table, device=dev),
-                torch.as_tensor(phases, dtype=torch.float32, device=dev),
-                torch.as_tensor([ch.acq.doppler_hz for ch in tracked],
-                                dtype=torch.float32, device=dev),
-                cfg.plan,
-            ).cpu().numpy().astype(np.float64)
-            refined = refine_code_phase(
-                samples, table, phases, dopplers, cfg.plan, cfg.track,
-                device=dev)
+            dopplers, refined = handoff(
+                samples, e, table, phases,
+                np.array([ch.acq.doppler_hz for ch in tracked]), cfg, dev,
+                self.profiler.stage)
         state = init_state(len(tracked), refined, dopplers,
                            start_epoch=start_epoch,
                            window=cfg.track.pll_check_window, device=dev)

@@ -61,7 +61,7 @@ from ..pvt.solve import (Solution, identify_grid_fault, pntpos,
                          solution_plausible)
 from ..signal.ca_code import ca_table_bipolar
 from ..track.aided_sync import boundary_from_flip_hist, engage_bit_sync
-from ..track.pretrack import refine_code_phase
+from ..track.pretrack import code_search_power, refine_code_phase
 from ..track.scan import track_block
 from ..track.state import TrackOutputs, TrackState, concat_states, init_state
 from ..utils import graphs
@@ -216,6 +216,110 @@ def push_channel_bit(ch: ChannelStatus, value: int, epoch: int,
         ch.subframe_tow_s = getbitu(sf.bits, 30, 17) * 6.0
 
 
+#: the share of the code search's peak power under which the Doppler
+#: search's replica is held to have carried too little of the signal
+#: (1/8: a prompt a third of the peak's amplitude).  Rectangular chips at
+#: 2 samples a chip read 1 or 1/4 of the peak in a replica cell within half
+#: a chip of the signal, and only the noise in one over half a chip off
+#: (1/(1 + SNR) of an epoch: 0.04 at 44 dBHz).
+WEAK_PROMPT_SHARE = 0.125
+
+
+def replica_cell_centre(phases, plan) -> np.ndarray:
+    """Each code phase (chips) moved to the middle of its replica cell, as
+    float32.  A replica sampled at ``plan.chips_per_sample`` chips a
+    sample reads the same chip for every sample whatever the phase within
+    a cell of that width (a half chip at 2 samples a chip), so the move
+    changes the replica at the first epoch in nothing; from the middle,
+    the phase's walk with the code Doppler (up to 0.07 chip over 32
+    epochs within +-7 kHz) stays in the cell."""
+    w = np.float32(plan.chips_per_sample)
+    p = np.asarray(phases, dtype=np.float32)
+    return (np.floor(p / w) * w + w / 2).astype(np.float32)
+
+
+def weak_prompt_channels(power: np.ndarray, phases, coarse_hz, plan,
+                         epochs: int) -> np.ndarray:
+    """Indices of the channels whose squared-prompt Doppler search saw too
+    little of the signal, from the code search's power alone (``power``,
+    (C, K), K half-chip offsets centred on the acquired phase).
+
+    The Doppler search's replica starts in the acquired phase's replica
+    cell and walks with the carrier-aided code rate at the coarse Doppler
+    ``coarse_hz``, 1023 coarse / f_L1 chips an epoch, so over its
+    ``epochs`` it may cross into the next cell; the code search's power
+    in the cell of each of those epochs (a cell is a half-chip offset at 2
+    samples a chip), averaged, is what the search had to go on.  A
+    channel under ``WEAK_PROMPT_SHARE`` of its peak power there is
+    returned: its acquired phase lay over half a chip off, or its replica
+    walked over half a chip off partway."""
+    k = power.shape[1]
+    w = float(plan.chips_per_sample)
+    p = np.asarray(phases, dtype=np.float32).astype(np.float64)
+    walk = (CODE_LENGTH * np.asarray(coarse_hz, np.float64) / FREQ_L1_HZ)
+    e = np.arange(epochs)
+    cell = (np.floor((p[:, None] + walk[:, None] * e[None, :]) / w)
+            - np.floor(p / w)[:, None]).astype(np.int64)
+    idx = np.clip((k - 1) // 2 + cell, 0, k - 1)
+    seen = np.take_along_axis(power, idx, axis=1).mean(axis=1)
+    return np.flatnonzero(seen < WEAK_PROMPT_SHARE * power.max(axis=1))
+
+
+def handoff(samples: Samples, epochs: int, table_np: np.ndarray,
+            phases: np.ndarray, coarse_hz: np.ndarray, cfg: ReceiverConfig,
+            device, stage) -> tuple:
+    """The handoff search of every acquired channel, the one sequence of
+    a cold start, a re-acquisition and the mesh's start: ``(dopplers,
+    refined)``, (C,) float64 Dopplers (Hz) and code phases (chips) at
+    ``samples``' first epoch, from the acquisition's ``phases`` and
+    ``coarse_hz`` and the bipolar codes ``table_np``.
+
+    ``pretrack.doppler``: the squared-prompt Doppler search over the
+    first ``epochs`` epochs at the acquired phase (the JAX package's
+    order).  ``pretrack.code``: the half-chip code search at that Doppler,
+    on what the first search left on ``device``.  Channels the code
+    search moved half a chip or more add to the counter
+    ``pretrack.code_moved``.  Where :func:`weak_prompt_channels` finds
+    that the Doppler search's replica held too little of the signal, the
+    Doppler of those channels is searched again at the refined phase, moved
+    to the middle of its replica cell (``pretrack.doppler_again``, span
+    and counter: one more upload, launch and readback); elsewhere the
+    result is the JAX package's.  ``stage(name).time()`` times each
+    step."""
+    plan = cfg.plan
+    with stage("pretrack.doppler").time():
+        # fine Doppler: long coherent FFT at the acquired code phase
+        # shrinks the handoff error from tens of Hz to ~1 Hz
+        table_d = upload(table_np, device)
+        phases_d = upload(phases, device, torch.float32)
+        coarse_d = upload(coarse_hz, device, torch.float32)
+        epochs_d = epochs_on(samples, epochs, plan.samples_per_epoch, device)
+        dopplers_d = refine_doppler_device(epochs_d, table_d, phases_d,
+                                           coarse_d, plan)
+        dopplers = readback(dopplers_d).astype(np.float64)
+    with stage("pretrack.code").time():
+        # the code search on what the Doppler search left on the device:
+        # nothing uploaded again
+        power = code_search_power(samples, table_d, phases, dopplers_d,
+                                  plan, cfg.track, device=device,
+                                  code_phase_device=phases_d)
+        refined = refine_code_phase(samples, table_d, phases, dopplers_d,
+                                    plan, cfg.track, device=device,
+                                    power=power)
+    moved = np.abs((refined - phases + 511.5) % 1023.0 - 511.5)
+    count("pretrack.code_moved", int((moved >= 0.5).sum()))
+    again = weak_prompt_channels(power, phases, coarse_hz, plan, epochs)
+    if again.size:
+        with stage("pretrack.doppler_again").time():
+            count("pretrack.doppler_again", int(again.size))
+            centred = np.asarray(phases, dtype=np.float32).copy()
+            centred[again] = replica_cell_centre(refined[again], plan)
+            dopplers[again] = readback(refine_doppler_device(
+                epochs_d, table_d, upload(centred, device), coarse_d, plan)
+            )[again]
+    return dopplers, refined
+
+
 @dataclass
 class ReceiverReport:
     """Result of processing a capture."""
@@ -349,7 +453,8 @@ class Receiver:
         """Stages 2-3 init: fine Doppler, pre-track refinement, tracking
         state.  The stage ``start_tracking`` spans the whole handoff;
         ``pretrack`` inside it holds ``pretrack.doppler`` and
-        ``pretrack.code``."""
+        ``pretrack.code``, and ``pretrack.doppler_again`` where a channel's
+        Doppler is searched again (:func:`weak_prompt_channels`)."""
         stage = self.profiler.stage
         with stage("start_tracking").time():
             cfg = self.config
@@ -363,6 +468,7 @@ class Receiver:
             self.channels = live
             table_np = ca_table_bipolar(prns)
             phases = np.array([ch.acq.code_phase_chips for ch in live])
+            coarse = np.array([ch.acq.doppler_hz for ch in live])
             spe = cfg.plan.samples_per_epoch
             # the weak-signal (coherent) mode needs a longer squared-prompt
             # span to beat the squaring loss at ~30 dBHz
@@ -370,24 +476,8 @@ class Receiver:
             e = min(fine_epochs, len(samples) // spe)
             dev = self.device
             with stage("pretrack").time():
-                with stage("pretrack.doppler").time():
-                    # fine Doppler: long coherent FFT at the acquired code
-                    # phase shrinks the handoff error from tens of Hz to ~1 Hz
-                    table_d = upload(table_np, dev)
-                    phases_d = upload(phases, dev, torch.float32)
-                    dopplers_d = refine_doppler_device(
-                        self._to_device(samples, e), table_d, phases_d,
-                        upload([ch.acq.doppler_hz for ch in live], dev,
-                               torch.float32),
-                        cfg.plan,
-                    )
-                    dopplers = readback(dopplers_d).astype(np.float64)
-                with stage("pretrack.code").time():
-                    # the code search on what the Doppler search left on
-                    # the device: nothing uploaded again
-                    refined = refine_code_phase(
-                        samples, table_d, phases, dopplers_d, cfg.plan,
-                        cfg.track, device=dev, code_phase_device=phases_d)
+                dopplers, refined = handoff(samples, e, table_np, phases,
+                                            coarse, cfg, dev, stage)
             self.code_table_np = table_np
             self.code_table = self._device_code_table(table_np)
             self.track_state = init_state(
@@ -922,21 +1012,11 @@ class Receiver:
             return []
         new_prns = [ch.prn for ch, _ in hits]
         table_new = ca_table_bipolar(new_prns)
-        e = min(32, len(window) // spe)
-        dopplers = refine_doppler_device(
-            self._to_device(window, e),
-            torch.as_tensor(table_new, device=dev),
-            torch.as_tensor([res.code_phase_chips for _, res in hits],
-                            dtype=torch.float32, device=dev),
-            torch.as_tensor([res.doppler_hz for _, res in hits],
-                            dtype=torch.float32, device=dev),
-            cfg.plan,
-        ).cpu().numpy().astype(np.float64)
-        phases = refine_code_phase(
-            window, table_new,
+        dopplers, phases = handoff(
+            window, min(32, len(window) // spe), table_new,
             np.array([res.code_phase_chips for _, res in hits]),
-            dopplers, cfg.plan, cfg.track, device=dev,
-        )
+            np.array([res.doppler_hz for _, res in hits]), cfg, dev,
+            self.profiler.stage)
         # the acquisition window ended at the cursor; the refined code
         # phase refers to the window start — advance to the cursor
         win_epochs = need // spe

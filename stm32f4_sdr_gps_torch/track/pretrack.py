@@ -170,7 +170,7 @@ def refine_code_phase_device(
     raise ValueError(f"no code search for device {epochs.device}")
 
 
-def refine_code_phase(
+def code_search_power(
     samples,
     code_table,                    # (C, 1023) bipolar
     code_phase_chips: np.ndarray,  # (C,) coarse acquisition result
@@ -181,30 +181,67 @@ def refine_code_phase(
     device="cuda",
     code_phase_device: torch.Tensor | None = None,
 ) -> np.ndarray:
-    """Return refined (C,) code phases (chips, sub-half-chip accurate),
-    computed on ``device``: the card unless the caller asks for the CPU;
-    raises without a card.
+    """The code search's (C, K) power on the host: K =
+    ``cfg.pre_track_zone_halfchips + 1`` half-chip offsets centred on each
+    channel's code phase, summed over the first ``num_epochs`` (else
+    ``cfg.pre_track_epochs``) epochs of ``samples``, computed on
+    ``device`` (the card unless the caller asks for the CPU; raises
+    without a card) and read back once.
 
     ``code_table`` and ``doppler_hz`` are numpy arrays, each uploaded, or
     float32 tensors already on ``device``, used in place;
     ``code_phase_device`` is the float32 copy of ``code_phase_chips``
     where the caller already holds one on ``device`` (none is uploaded
-    then).  The refined phases are offsets from ``code_phase_chips``,
-    interpolated on the host."""
+    then)."""
     device = card_or_cpu(device, "refine_code_phase")
     s_cnt = plan.samples_per_epoch
     e = min(num_epochs or cfg.pre_track_epochs, len(samples) // s_cnt)
-    k = cfg.pre_track_zone_halfchips + 1
     if code_phase_device is None:
         code_phase_device = upload(code_phase_chips, device, torch.float32)
-    power = readback(refine_code_phase_device(
+    return readback(refine_code_phase_device(
         epochs_on(samples, e, s_cnt, device),
         upload(code_table, device, torch.float32),
         code_phase_device,
         upload(doppler_hz, device, torch.float32),
         plan,
-        k,
+        cfg.pre_track_zone_halfchips + 1,
     ))
+
+
+def refine_code_phase(
+    samples,
+    code_table,                    # (C, 1023) bipolar
+    code_phase_chips: np.ndarray,  # (C,) coarse acquisition result
+    doppler_hz,                    # (C,)
+    plan: SignalPlan,
+    cfg: TrackConfig = TrackConfig(),
+    num_epochs: int | None = None,
+    device="cuda",
+    code_phase_device: torch.Tensor | None = None,
+    power: np.ndarray | None = None,
+) -> np.ndarray:
+    """Return refined (C,) code phases (chips, sub-half-chip accurate),
+    computed on ``device``: the card unless the caller asks for the CPU;
+    raises without a card.
+
+    :func:`interpolate_code_phase` of :func:`code_search_power`'s
+    power (same arguments), or of ``power``, that search's (C, K) result
+    where the caller holds it already on the host (the handoff, which
+    also reads it for its weak-prompt check): then nothing is searched,
+    uploaded or read back."""
+    if power is None:
+        power = code_search_power(samples, code_table, code_phase_chips,
+                                  doppler_hz, plan, cfg, num_epochs, device,
+                                  code_phase_device)
+    return interpolate_code_phase(power, code_phase_chips)
+
+
+def interpolate_code_phase(power: np.ndarray,
+                           code_phase_chips: np.ndarray) -> np.ndarray:
+    """Refined (C,) code phases (chips) from the code search's (C, K)
+    ``power``, K half-chip offsets centred on ``code_phase_chips``: the
+    peak offset, moved by a parabola through it and its neighbours."""
+    k = power.shape[1]
     best = power.argmax(axis=1)
     # parabolic interpolation around the peak (clamped at zone edges)
     refined = []
