@@ -304,6 +304,17 @@ before the result line):
    truth, each of which must search the Doppler again
    (``pretrack.doppler_again``, two squared-prompt launches) and hand
    over within the same limits.
+30. the captured acquisition (``probes/acquire_replay.py``): the cube
+   and its peak analysis (``acquire.engine._acquire_fused``) at 4 and 32
+   PRNs, with 2-epoch coherent sums and 2 bit-edge hypotheses, with a
+   hint mask and on the matmul DFT's "default" path, run eagerly
+   (``graphs.disable_capture()``) and captured, on two windows with two
+   PRN sets of one size: every AcqResult field bit for bit, one
+   ``acquire.capture`` then an ``acquire.replay`` a call, one readback
+   a call; the host time of a whole ``acquire`` call (median of 50) and
+   the device time of a program call (queued), eager and replayed; then
+   the "highest" DFT precision must raise on its replayed key once TF32
+   is switched on.
 
 Every tracking program runs as a captured CUDA graph by default
 (``utils/graphs.py``: the port's ``jax.jit``), and every phase's launch
@@ -3199,6 +3210,19 @@ def int8_coldstart_phase(device="cuda"):
     return rec
 
 
+# ---------------------------------------------------------------- phase 30
+
+def acquire_replay_phase():
+    """Phase 30: the captured acquisition against its eager run
+    (probes/acquire_replay.py), with its times.  Returns its record."""
+    from stm32f4_sdr_gps_torch.probes import acquire_replay as ar
+
+    try:
+        return ar.run()
+    except ar.AcquireReplayCheckError as e:
+        fail(f"[acq_replay] {e}")
+
+
 def main():
     sys.path.insert(0, HERE)
     import stm32f4_sdr_gps_torch
@@ -3316,9 +3340,12 @@ def main():
     t0 = time.perf_counter()
     int8_rec = int8_coldstart_phase()
     phase_s[29] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    acq_replay_rec = acquire_replay_phase()
+    phase_s[30] = time.perf_counter() - t0
     from stm32f4_sdr_gps_torch.utils import graphs
 
-    print(f"[phases] seconds of phases 11-29: "
+    print(f"[phases] seconds of phases 11-30: "
           f"{ {k: round(v, 1) for k, v in phase_s.items()} }")
     print(f"[graphs] this run: {graphs.stats['captures']} captures, "
           f"{graphs.stats['replays']} replays, {graphs.stats['evictions']} "
@@ -3374,6 +3401,7 @@ def main():
         "reacquire": reacq,
         "rtcm_checkpoint": rtcm,
         "acquisition_32prn_ms": acq_ms,
+        "acquire_replay": acq_replay_rec,
         "wire_format": wire,
         "mesh": mesh,
         "reference_scan_path": refscan,

@@ -16,6 +16,7 @@ also here.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -23,6 +24,7 @@ import torch
 
 from ..config import AcqConfig, SignalPlan, BASEBAND_PLAN, FREQ_L1_HZ
 from ..ops.correlate import (
+    check_float32_matmuls,
     code_fft_conj,
     code_spectrum_conj_matmul,
     dft_tables_device,
@@ -270,16 +272,16 @@ def analyze_power(
     """Peak detection + sub-bin interpolation -> AcqResults.
 
     A tensor cube is analyzed on its own device (analyze_power_device)
-    and only the per-PRN vectors come back; a numpy cube is analyzed on
-    the host (_analyze_power_host)."""
+    and only the per-PRN vectors come back, stacked into one (5, P)
+    readback; a numpy cube is analyzed on the host
+    (_analyze_power_host)."""
     excl = exclusion_lags(cfg, plan)
     bins_np = np.asarray(doppler_bins_hz, dtype=np.float32)
     if isinstance(power, np.ndarray):
         vecs = _analyze_power_host(power, bins_np, excl)
     else:
         bins = torch.as_tensor(bins_np, device=power.device)
-        vecs = [v.cpu().numpy()
-                for v in analyze_power_device(power, bins, excl)]
+        vecs = readback(torch.stack(analyze_power_device(power, bins, excl)))
     return _results_from_vectors(vecs, prns, plan, cfg)
 
 
@@ -314,6 +316,36 @@ def epochs_on(samples, e: int, s: int, device) -> torch.Tensor:
                                        dtype=np.complex64), device)
 
 
+@functools.lru_cache(maxsize=graphs.MAX_ENTRIES)
+def _doppler_grid(bins: tuple, plan: SignalPlan, device: str) -> tuple:
+    """(the Doppler bins, their (D, S) rotations) on ``device``, made
+    once a process for each grid: constants of the configuration."""
+    bins_d = upload(np.asarray(bins, dtype=np.float32), device)
+    return bins_d, doppler_rotations(bins_d, plan.samples_per_epoch,
+                                     plan.sample_rate_hz)
+
+
+@functools.lru_cache(maxsize=2)
+def _dft_tables(s: int, device: str) -> tuple:
+    """The matmul DFT's (S, S) twiddle tables on ``device``, made once a
+    process."""
+    return dft_tables_device(s, device=device)
+
+
+@functools.lru_cache(maxsize=graphs.MAX_ENTRIES)
+def _code_spectra(prns: tuple, plan: SignalPlan, use_dft: bool,
+                  device: str) -> torch.Tensor:
+    """The sampled codes' conjugate spectra (P, S) on ``device``, made
+    once a process for each PRN tuple: by FFT, or for the matmul DFT from
+    the codes shipped bit-packed and their spectrum taken as a product."""
+    if use_dft:
+        s = plan.samples_per_epoch
+        packed = upload(pack_code_bits(prns, plan), device)
+        return code_spectrum_conj_matmul(unpack_code_table(packed, s),
+                                         *_dft_tables(s, device))
+    return code_fft_conj(prns, plan, device=device)
+
+
 def acquire(
     samples,
     prns,
@@ -331,43 +363,70 @@ def acquire(
     10 epochs per Doppler bin, acquisition.c:18).  ``doppler_hints_hz``
     maps PRN -> expected Doppler; a hinted channel's search is confined to
     hint +/- one bin (main.c:59-73, acquisition.c:72-79).
+
+    The code spectra, the Doppler bins and rotations and the DFT tables
+    are made once a process (``_code_spectra``, ``_doppler_grid``,
+    ``_dft_tables``; shared, so read only); the cube and its analysis run
+    as one captured program (``_acquire_fused``), whose (5, P) result
+    comes back in one ``readback``.  Counted in the innermost span:
+    ``acquire.capture`` where the call captured the program,
+    ``acquire.replay`` where it replayed one (a capturing call replays
+    too).
     """
     device = card_or_cpu(device, "acquire")
+    args, static = fused_args(samples, prns, plan, cfg, num_epochs,
+                              doppler_hints_hz, device)
+    captures, replays = graphs.stats["captures"], graphs.stats["replays"]
+    out = _acquire_fused(*args, **static)
+    if graphs.stats["captures"] != captures:
+        count("acquire.capture")
+    if graphs.stats["replays"] != replays:
+        count("acquire.replay")
+    return _results_from_vectors(readback(out), prns, plan, cfg)
+
+
+def fused_args(samples, prns, plan: SignalPlan, cfg: AcqConfig,
+               num_epochs: int | None, doppler_hints_hz: dict | None,
+               device: torch.device) -> tuple:
+    """(tensor arguments, static arguments) of :func:`_acquire_fused` for
+    :func:`acquire`'s call: the epochs on ``device``, the tables of the
+    configuration (made once a process) and the hint mask."""
     s = plan.samples_per_epoch
     e = num_epochs or cfg.noncoherent_epochs
     if len(samples) < e * s:
         raise ValueError(f"need at least {e} epochs of samples")
-    epochs = epochs_on(samples, e, s, device)
-    bins = np.asarray(cfg.doppler_bins_hz, dtype=np.float32)
-    bins_d = upload(bins, device)
-    rot = doppler_rotations(bins_d, s, plan.sample_rate_hz)
-    dft = None
     if cfg.use_matmul_dft:
-        # twiddle tables made on the device, the codes shipped bit-packed
-        # and their spectrum taken as a product
-        dft = dft_tables_device(s, device=device)
-        packed = upload(pack_code_bits(prns, plan), device)
-        cfc = code_spectrum_conj_matmul(unpack_code_table(packed, s), *dft)
-    else:
-        cfc = code_fft_conj(prns, plan, device=device)
-    keep = _hint_mask(prns, bins, doppler_hints_hz, cfg)
+        # the code spectra are float32 products: refuse TF32 on every
+        # call, as a replay runs no Python of the product's own guard
+        check_float32_matmuls(device)
+    epochs = epochs_on(samples, e, s, device)
+    key = str(device)
+    bins_d, rot = _doppler_grid(tuple(cfg.doppler_bins_hz), plan, key)
+    dft = _dft_tables(s, key) if cfg.use_matmul_dft else None
+    cfc = _code_spectra(tuple(int(p) for p in prns), plan,
+                        cfg.use_matmul_dft, key)
+    keep = _hint_mask(prns, np.asarray(cfg.doppler_bins_hz, np.float32),
+                      doppler_hints_hz, cfg)
     keep_d = None if keep is None else upload(keep, device)
-    out = _acquire_fused(epochs, cfc, rot, bins_d, keep_d, dft,
-                         coherent=cfg.coherent_epochs,
-                         n_hyp=max(1, int(cfg.edge_hypotheses)),
-                         dft_precision=cfg.dft_precision,
-                         excl=exclusion_lags(cfg, plan))
-    return _results_from_vectors([readback(v) for v in out], prns, plan,
-                                 cfg)
+    return ((epochs, cfc, rot, bins_d, keep_d, dft),
+            dict(coherent=cfg.coherent_epochs,
+                 n_hyp=max(1, int(cfg.edge_hypotheses)),
+                 dft_precision=cfg.dft_precision,
+                 excl=exclusion_lags(cfg, plan)))
 
 
+@graphs.captured(static_argnames=("coherent", "n_hyp", "dft_precision",
+                                  "excl"))
 def _acquire_fused(epochs, cfc, rot, bins, keep, dft, coherent: int,
                    n_hyp: int, dft_precision: str, excl: int):
     """Cube -> hypothesis max-combine -> hint mask -> peak analysis, all
-    on the epochs' device; returns only (P,) vectors.  Bit-edge
-    hypotheses shift the coherent block grid and max-combine
-    per-block-normalized powers, so one hypothesis has every block free
-    of a nav-bit sign flip."""
+    on the epochs' device; returns only the (5, P) stack of the peak,
+    lag, Doppler, second-peak and mean vectors.  Bit-edge hypotheses
+    shift the coherent block grid and max-combine per-block-normalized
+    powers, so one hypothesis has every block free of a nav-bit sign
+    flip.  On the card a captured CUDA graph (``utils.graphs``: the key
+    holds the static arguments, whether ``keep`` and ``dft`` are given,
+    and the tensors' shapes), so PRN sets of one size share a program."""
     if n_hyp == 1:
         power = acquisition_power(epochs, cfc, rot, coherent=coherent,
                                   dft=dft, dft_precision=dft_precision)
@@ -377,7 +436,7 @@ def _acquire_fused(epochs, cfc, rot, bins, keep, dft, coherent: int,
             dft_precision=dft_precision)
     if keep is not None:
         power = power * keep[:, :, None]
-    return analyze_power_device(power, bins, excl)
+    return torch.stack(analyze_power_device(power, bins, excl))
 
 
 def refine_doppler(

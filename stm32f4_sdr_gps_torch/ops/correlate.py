@@ -88,6 +88,16 @@ def tf32_matmul_on() -> bool:
         return torch.backends.cuda.matmul.fp32_precision == "tf32"
 
 
+def check_float32_matmuls(device) -> None:
+    """Raise RuntimeError where float32 matmuls on ``device`` would round
+    their inputs to TF32 (a CUDA device, with TF32 turned on in this
+    process): the "highest" DFT precision's guard."""
+    if torch.device(device).type == "cuda" and tf32_matmul_on():
+        raise RuntimeError(
+            'the "highest" DFT precision needs float32 matmuls, but '
+            "TF32 is on for CUDA matmuls in this process")
+
+
 def dft_matmul(a: torch.Tensor, b: torch.Tensor,
                precision: str = "highest") -> torch.Tensor:
     """``a @ b`` over a's last axis for float32 ``a`` (..., K) and ``b``
@@ -107,10 +117,7 @@ def dft_matmul(a: torch.Tensor, b: torch.Tensor,
     if a.device.type != "cuda":
         out = a2 @ b
     elif precision == "highest":
-        if tf32_matmul_on():
-            raise RuntimeError(
-                'the "highest" DFT precision needs float32 matmuls, but '
-                "TF32 is on for CUDA matmuls in this process")
+        check_float32_matmuls(a.device)
         out = a2 @ b
     else:
         out = torch.mm(a2.to(torch.bfloat16), b.to(torch.bfloat16),

@@ -3,9 +3,11 @@
 The JAX package compiles its per-block tracking programs with
 ``jax.jit``: ``track_block`` (a ``lax.scan`` over ``track_epoch_step``,
 track/scan.py:393) and the two block programs of runtime/receiver.py
-(``_track_and_digest``, ``_track_and_digest_carried``).  On the card the
-port captures each of them once per key as a CUDA graph and replays it,
-as jit traces once per key and reruns the compiled program:
+(``_track_and_digest``, ``_track_and_digest_carried``), and the
+acquisition's cube and peak analysis (``_acquire_fused``,
+acquire/engine.py).  On the card the port captures each of them once per
+key as a CUDA graph and replays it, as jit traces once per key and reruns
+the compiled program:
 
 * :func:`captured` decorates a function whose arguments are pytrees of
   tensors (tensors, tuples, NamedTuples, lists, None) or static values

@@ -23,6 +23,7 @@ from stm32f4_sdr_gps_torch.config import BASEBAND_PLAN as T_PLAN
 from stm32f4_sdr_gps_torch.ops.correlate import code_fft_conj
 from stm32f4_sdr_gps_torch.ops.wipeoff import doppler_rotations
 from stm32f4_sdr_gps_torch.track.pretrack import refine_code_phase
+from stm32f4_sdr_gps_torch.utils import profiling
 from tests.test_receiver import PRNS, _make_capture
 
 torch.set_num_threads(2)
@@ -105,3 +106,72 @@ def test_handoff_matches_jax(capture):
     got_cp = refine_code_phase(capture, table, cp, fine, T_PLAN,
                                TrackConfig(), device="cpu")
     assert _cp_dist(got_cp, want_cp).max() < 0.05
+
+
+# ---------------------------------------------------------------- copies
+
+SMALL = dict(doppler_span_hz=1000.0, noncoherent_epochs=4)
+
+
+def _moved(run):
+    """The counters ``run()`` moved (utils.profiling.counters)."""
+    before = dict(profiling.counters)
+    out = run()
+    return out, {k: v - before.get(k, 0) for k, v in
+                 profiling.counters.items() if v != before.get(k, 0)}
+
+
+@pytest.mark.parametrize("hinted", [False, True])
+def test_acquire_reads_back_once(capture, hinted):
+    """The (5, P) result of the cube's analysis comes back in one copy."""
+    hints = {7: 800.0} if hinted else None
+    _, moved = _moved(lambda: teng.acquire(
+        torch.as_tensor(capture), list(SEARCH), T_PLAN, AcqConfig(),
+        doppler_hints_hz=hints, device="cpu"))
+    assert moved["readback"] == 1
+
+
+@pytest.mark.parametrize("dft", [False, True], ids=["fft", "matmul_dft"])
+def test_acquire_uploads_its_tables_once(capture, dft):
+    """The configuration's tables are made once a process: a second call
+    with the same PRNs, plan and grid uploads nothing but the samples;
+    another PRN set uploads its codes (the matmul DFT's packed bits, or
+    the sampled table of the FFT path) and reuses the grid."""
+    cfg = AcqConfig(use_matmul_dft=dft, **SMALL)
+    teng._code_spectra.cache_clear()
+    teng._doppler_grid.cache_clear()
+
+    def run(prns):
+        return _moved(lambda: teng.acquire(capture, prns, T_PLAN, cfg,
+                                           device="cpu"))
+
+    first, moved = run(list(PRNS))
+    assert moved["upload"] == 3 and moved["upload.samples"] == 1
+    second, moved = run(list(PRNS))
+    assert moved["upload"] == 1 and moved["upload.samples"] == 1
+    assert second == first
+    _, moved = run([5, 30])
+    assert moved["upload"] == 2 and moved["upload.samples"] == 1
+
+
+def test_analyze_power_tensor_equals_host(capture):
+    """analyze_power on a tensor cube (the device analysis, one readback)
+    gives the AcqResults of its numpy mirror on the same cube."""
+    bins = np.asarray(AcqConfig().doppler_bins_hz, np.float32)
+    power = teng.acquisition_power(
+        torch.as_tensor(capture[: 10 * S].reshape(10, S)),
+        code_fft_conj(list(SEARCH), T_PLAN, device="cpu"),
+        doppler_rotations(torch.as_tensor(bins), S, T_PLAN.sample_rate_hz))
+    got, moved = _moved(lambda: teng.analyze_power(
+        power, list(SEARCH), bins, T_PLAN, AcqConfig()))
+    want = teng.analyze_power(power.numpy(), list(SEARCH), bins, T_PLAN,
+                              AcqConfig())
+    assert moved == {"readback": 1}
+    assert [r.detected for r in got] == [True] * 4 + [False] * 2
+    for g, w in zip(got, want):
+        assert (g.prn, g.detected) == (w.prn, w.detected)
+        assert g.doppler_hz == w.doppler_hz
+        assert g.code_phase_chips == w.code_phase_chips
+        assert g.peak_power == w.peak_power
+        assert g.peak_ratio == w.peak_ratio
+        assert g.peak_to_mean == pytest.approx(w.peak_to_mean, rel=1e-6)

@@ -3,8 +3,8 @@ versions: the tracking scan (K1, in each of its modes), the per-epoch
 E/P/L correlator (K2), the correlator-bank probe (P5), the epoch-cost
 probes (P6-P8), the roll probes (P1-P4) and the handoff search's
 kernels (csrc/pretrack.cu); K1 once a position of a mesh that repeats
-the card; the captured tracking programs (utils.graphs) replayed against
-their eager runs, bit for bit.
+the card; the captured tracking programs and the captured acquisition
+(utils.graphs) replayed against their eager runs, bit for bit.
 
 Needs an NVIDIA GPU and nvcc; every test skips without a CUDA device.
 Imports only the port, torch and numpy (the machine with the card has no
@@ -46,6 +46,7 @@ from stm32f4_sdr_gps_torch.ops import correlate as corr
 from stm32f4_sdr_gps_torch.ops import epl
 from stm32f4_sdr_gps_torch.ops import track_scan as ts
 from stm32f4_sdr_gps_torch.ops.epl import upsampled_code_doubled
+from stm32f4_sdr_gps_torch.probes import acquire_replay as ar
 from stm32f4_sdr_gps_torch.probes import corr_bank as cb
 from stm32f4_sdr_gps_torch.probes import pretrack_kernels as pk
 from stm32f4_sdr_gps_torch.probes import (forest_chain, forest_constructs,
@@ -685,6 +686,21 @@ def test_failed_capture_raises(dev):
     with graphs.disable_capture():
         assert torch.equal(syncs(torch.ones(4, device=dev)),
                            torch.full((4,), 4.0, device=dev))
+
+
+@pytest.mark.parametrize("case", list(ar.CASES))
+def test_captured_acquisition_equals_eager(dev, case):
+    """The acquisition's captured program (acquire.engine._acquire_fused)
+    against its eager run (probes/acquire_replay.py): every AcqResult
+    field bit for bit on two windows and two PRN sets of one size, one
+    capture, a replay and one readback a call."""
+    ar.check(case, ar.scenario(), dev)
+
+
+def test_acquisition_refuses_tf32_on_a_replayed_key(dev):
+    """The "highest" DFT precision, captured with TF32 off, raises on its
+    replayed key once TF32 is on, and captures nothing."""
+    ar.tf32_refused(ar.scenario(), dev)
 
 
 @pytest.mark.parametrize("case", list(pk.CASES))

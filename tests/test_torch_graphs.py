@@ -28,6 +28,8 @@ import torch
 
 from stm32f4_sdr_gps_tpu.track.scan import track_block as j_track_block
 from stm32f4_sdr_gps_tpu.track.state import init_state as j_init_state
+from stm32f4_sdr_gps_torch.acquire import engine
+from stm32f4_sdr_gps_torch.config import AcqConfig
 from stm32f4_sdr_gps_torch.config import BASEBAND_PLAN as T_PLAN
 from stm32f4_sdr_gps_torch.ops import track_scan as ts
 from stm32f4_sdr_gps_torch.ops.epl import upsampled_code_doubled
@@ -36,7 +38,7 @@ from stm32f4_sdr_gps_torch.runtime.digest import (BlockDigest, digest_block,
                                                   digest_to_host)
 from stm32f4_sdr_gps_torch.track.scan import track_block, track_epoch_step
 from stm32f4_sdr_gps_torch.track.state import TrackOutputs, init_state
-from stm32f4_sdr_gps_torch.utils import graphs
+from stm32f4_sdr_gps_torch.utils import graphs, profiling
 from tests.test_pallas_scan import (PLAN, PRNS, _assert_outputs_match,
                                     _assert_states_match)
 from tests.test_torch_track import _jax_cfg, _setup, _torch_cfg
@@ -151,17 +153,19 @@ def _run_program(name, c=len(PRNS), t=12, cfg=None):
 
 class _Stub:
     """A captured program that runs eagerly: counts its captures and
-    replays."""
+    replays, in ``graphs.stats`` too, as a captured program does."""
 
     captures = 0
 
     def __init__(self, run):
         _Stub.captures += 1
+        graphs.stats["captures"] += 1
         self.runs = 0
         self._run = run
 
     def run(self, *args):
         self.runs += 1
+        graphs.stats["replays"] += 1
         return self._run(*args)
 
 
@@ -260,6 +264,60 @@ def test_decorated_equals_undecorated_on_cpu(name):
     assert gspec == wspec and len(gl) == len(wl)
     for a, b in zip(gl, wl):
         _equal(a, b)
+
+
+# ---------------------------------------------------------------- acquisition
+
+ACQ_X = (np.array([1.0, 1j]) @ np.random.default_rng(23).standard_normal(
+    (2, 4 * 2046))).astype(np.complex64)
+ACQ_SMALL = dict(doppler_span_hz=1000.0, noncoherent_epochs=4)
+#: the second call of each case, after acquire(PRNs 4, 7) on the default
+ACQ_CHANGES = {
+    "prn_set": dict(prns=[9, 30]),
+    "prn_count": dict(prns=[4, 7, 9]),
+    "hint_mask": dict(hints={7: 500.0}),
+    "coherent": dict(cfg=dict(coherent_epochs=2)),
+    "edge_hypotheses": dict(base=dict(coherent_epochs=2),
+                            cfg=dict(coherent_epochs=2, edge_hypotheses=2)),
+    "dft_precision": dict(base=dict(use_matmul_dft=True),
+                          cfg=dict(use_matmul_dft=True,
+                                   dft_precision="highest")),
+}
+
+
+def _acquire(prns=(4, 7), cfg=None, hints=None):
+    acq = AcqConfig(**ACQ_SMALL, **(cfg or {}))
+    return engine.acquire(ACQ_X, list(prns), T_PLAN, acq,
+                          doppler_hints_hz=hints, device="cpu")
+
+
+@pytest.mark.parametrize("change", list(ACQ_CHANGES))
+def test_acquisition_program_keys(stubbed, change):
+    """Two PRN sets of one size share the captured acquisition; another
+    PRN count, a hint mask, another coherent span, edge-hypothesis count
+    or DFT precision each capture their own."""
+    kw = dict(ACQ_CHANGES[change])
+    base = kw.pop("base", None)
+    _acquire(cfg=base)
+    assert stubbed.captures == 1
+    _acquire(**{**dict(cfg=base), **kw})
+    assert stubbed.captures == (1 if change == "prn_set" else 2)
+    assert sum(p.runs for p in graphs._cache.values()) == 2
+
+
+def test_acquisition_counts_capture_and_replay(stubbed):
+    """``acquire.capture`` on the call that captures, ``acquire.replay``
+    on every call that replays (the capturing one too)."""
+    def moved():
+        before = dict(profiling.counters)
+        _acquire()
+        return {k: profiling.counters.get(k, 0) - before.get(k, 0)
+                for k in ("acquire.capture", "acquire.replay")}
+
+    assert moved() == {"acquire.capture": 1, "acquire.replay": 1}
+    assert moved() == {"acquire.capture": 0, "acquire.replay": 1}
+    with graphs.disable_capture():
+        assert moved() == {"acquire.capture": 0, "acquire.replay": 0}
 
 
 def test_scan_rejects_a_changing_carry():
