@@ -27,10 +27,9 @@ import numpy as np
 import torch
 
 from .config import BASEBAND_PLAN, TrackConfig
-from .ops.epl import upsampled_code_doubled
+from .ops.epl import code_rows
 from .ops.track_scan import state_from_track_state
 from .runtime.receiver import _track_and_digest_carried
-from .signal.ca_code import ca_table_bipolar
 from .track.scan import track_block
 from .track.state import init_state
 from .utils.device import card_or_cpu
@@ -63,8 +62,7 @@ def entry(device="cuda", num_channels: int = 32, num_epochs: int = 96):
     plan = BASEBAND_PLAN
     cfg = TrackConfig(in_kernel_scan=True)
     state, epochs, prns = _setup(num_channels, num_epochs, cfg, device)
-    u2 = torch.as_tensor(upsampled_code_doubled(ca_table_bipolar(prns)),
-                         device=device)
+    u2 = code_rows(tuple(prns), True, str(device))
 
     def fn(ps, epochs, u2):
         return _track_and_digest_carried(ps, epochs, u2, plan, cfg, 100, True)
@@ -82,7 +80,7 @@ def entry_jnp_scan(device="cuda", num_channels: int = 32,
     plan = BASEBAND_PLAN
     cfg = TrackConfig(in_kernel_scan=False)
     state, epochs, prns = _setup(num_channels, num_epochs, cfg, device)
-    table = torch.as_tensor(ca_table_bipolar(prns), device=device)
+    table = code_rows(tuple(prns), False, str(device))
 
     def fn(state, epochs, table):
         return track_block(state, epochs, table, plan, cfg)
@@ -151,7 +149,8 @@ def dryrun_multichip(n_shards: int, device="cuda") -> dict:
     n_ch = 4 * n_shards
     tr = StreamingTracker(init_state(
         n_ch, rng.uniform(0, 1023, n_ch), rng.uniform(-5000, 5000, n_ch),
-        device=device), ca_table_bipolar([(i % 32) + 1 for i in range(n_ch)]),
+        device=device), code_rows(tuple((i % 32) + 1 for i in range(n_ch)),
+                                  False, str(device)),
         mesh, plan, cfg)
     outs = tr.process(torch.as_tensor(
         (rng.standard_normal((3, s))
@@ -164,8 +163,8 @@ def dryrun_multichip(n_shards: int, device="cuda") -> dict:
     cfg_ik = dataclasses.replace(cfg, in_kernel_scan=True)
     tr = StreamingTracker(init_state(
         n_ch, rng.uniform(0, 1023, n_ch), rng.uniform(-5000, 5000, n_ch),
-        device=device), upsampled_code_doubled(
-            ca_table_bipolar([(i % 32) + 1 for i in range(n_ch)])),
+        device=device), code_rows(tuple((i % 32) + 1 for i in range(n_ch)),
+                                  True, str(device)),
         mesh, plan, cfg_ik)
     o = tr.process((rng.standard_normal(2 * s)
                     + 1j * rng.standard_normal(2 * s)).astype(np.complex64))

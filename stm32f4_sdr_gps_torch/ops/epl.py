@@ -28,13 +28,16 @@ sums are equal bit for bit.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
 import torch
 
 from ..config import CODE_LENGTH
+from ..signal.ca_code import ca_table_bipolar
 from ..utils import graphs
+from ..utils.device import upload
 
 S = 2 * CODE_LENGTH            # 2046 samples / epoch at 2 samples/chip
 U2P = 4352                     # width of a doubled upsampled code row
@@ -54,6 +57,33 @@ def upsampled_code_doubled(code_table: np.ndarray) -> np.ndarray:
     out = np.empty((c, U2P), dtype=np.float32)
     out[:, :] = code_table[:, idx]
     return out
+
+
+def doubled_codes(raw: torch.Tensor) -> torch.Tensor:
+    """:func:`upsampled_code_doubled` of the (C, 1023) table ``raw``,
+    gathered on its device by an index made there (exact: values +-1)."""
+    j = torch.arange(U2P, device=raw.device)
+    return raw[:, (j // 2) % CODE_LENGTH]
+
+
+@functools.lru_cache(maxsize=graphs.MAX_ENTRIES)
+def code_rows(prns: tuple, doubled: bool, device: str) -> torch.Tensor:
+    """The (C, 1023) float32 bipolar C/A codes of ``prns`` on ``device``,
+    or where ``doubled`` their :func:`doubled_codes`, made once a process
+    for each PRN tuple (the raw table is one counted upload).  Shared and
+    read-only: a channel-set change builds a new table from them."""
+    if doubled:
+        return doubled_codes(code_rows(prns, False, device))
+    return upload(ca_table_bipolar(prns), device)
+
+
+def raw_codes(code_table: torch.Tensor) -> torch.Tensor:
+    """The (C, 1023) bipolar rows of a tracking path's code table: the
+    table at width 1023, else columns 0, 2, ..., 2044 of the doubled form
+    (``U[2k] = code[k]``), contiguous."""
+    if code_table.shape[-1] == CODE_LENGTH:
+        return code_table
+    return code_table[:, 0:S:2].contiguous()
 
 
 def halfchip_shift(code_phase_chips: torch.Tensor) -> torch.Tensor:

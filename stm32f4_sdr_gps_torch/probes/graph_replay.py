@@ -52,10 +52,8 @@ import torch
 from ..config import BASEBAND_PLAN, TrackConfig
 from ..ops import epl
 from ..ops import track_scan as ts
-from ..ops.epl import upsampled_code_doubled
 from ..runtime.digest import digest_to_host
 from ..runtime.receiver import _track_and_digest, _track_and_digest_carried
-from ..signal.ca_code import ca_table_bipolar
 from ..signal.simulator import SimSat, simulate_capture
 from ..track.state import TrackState, init_state
 from ..utils import graphs
@@ -109,11 +107,10 @@ def entering(name: str, c: int, cp0, dop0, device):
     cfg = CFGS[name]
     st = init_state(c, cp0[idx], dop0[idx], window=cfg.pll_check_window,
                     device=device)
-    table = ca_table_bipolar([PRNS[j] for j in idx])
-    if name != "reference_scan":
-        table = upsampled_code_doubled(table)
+    table = epl.code_rows(tuple(PRNS[j] for j in idx),
+                          name != "reference_scan", str(device))
     carry = ts.state_from_track_state(st) if name == "k1_carried" else st
-    return carry, torch.as_tensor(table, device=device)
+    return carry, table
 
 
 def _drop_last(carry):

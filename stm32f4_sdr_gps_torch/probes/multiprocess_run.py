@@ -222,13 +222,9 @@ def _require(ok, msg: str) -> None:
 def _tables(prns, cfg, dev):
     """The tracker's code table for ``cfg``'s tracking path on ``dev``."""
     from ..config import resolve_in_kernel_scan
-    from ..ops.epl import upsampled_code_doubled
-    from ..signal.ca_code import ca_table_bipolar
+    from ..ops.epl import code_rows
 
-    table = ca_table_bipolar(prns)
-    if resolve_in_kernel_scan(cfg, dev):
-        table = upsampled_code_doubled(table)
-    return torch.as_tensor(table, device=dev)
+    return code_rows(tuple(prns), resolve_in_kernel_scan(cfg, dev), str(dev))
 
 
 def stage_acquisition(mesh, dev, x1, rank, group) -> dict:

@@ -334,8 +334,7 @@ def track_inputs(samples, prns, cp0, dop0, cfg, device, synced=False):
     import torch
 
     from ..config import BASEBAND_PLAN, resolve_in_kernel_scan
-    from ..ops.epl import upsampled_code_doubled
-    from ..signal.ca_code import ca_table_bipolar
+    from ..ops.epl import code_rows
     from ..track.state import init_state
 
     s = BASEBAND_PLAN.samples_per_epoch
@@ -349,13 +348,11 @@ def track_inputs(samples, prns, cp0, dop0, cfg, device, synced=False):
             right_period_cnt=torch.full((len(prns),), 10,
                                         dtype=torch.int32,
                                         device=st.period_sync_ok.device))
-    table = ca_table_bipolar(list(prns))
-    if cfg.use_pallas or resolve_in_kernel_scan(cfg, device):
-        table = upsampled_code_doubled(table)
+    doubled = bool(cfg.use_pallas or resolve_in_kernel_scan(cfg, device))
     epochs = torch.as_tensor(
         np.ascontiguousarray(np.asarray(samples, np.complex64)
                              .reshape(-1, s)), device=device)
-    return st, epochs, torch.as_tensor(table, device=device)
+    return st, epochs, code_rows(tuple(prns), doubled, str(device))
 
 
 def run_track(samples, prns, cp0, dop0, cfg, device="cuda", synced=False):

@@ -31,7 +31,9 @@ import numpy as np
 import torch
 
 from ..convert import track_state_from_numpy, track_state_to_numpy
+from ..ops.epl import doubled_codes, raw_codes
 from ..track.state import TrackState
+from ..utils.device import readback, upload
 
 _FORMAT_VERSION = 2
 
@@ -151,12 +153,11 @@ def save_receiver(path: str, receiver) -> str:
     if receiver.track_state is not None:
         for f, v in track_state_to_numpy(receiver.track_state).items():
             arrays[f"ts_{f}"] = v
-        arrays["code_table"] = receiver.code_table.cpu().numpy()
+        arrays["code_table"] = readback(receiver.code_table)
         # canonical (C, 1023) bipolar table: the device form above depends
         # on the tracking path, so the loader rebuilds the right form for
         # its own from this
-        if getattr(receiver, "code_table_np", None) is not None:
-            arrays["code_table_raw"] = np.asarray(receiver.code_table_np)
+        arrays["code_table_raw"] = readback(raw_codes(receiver.code_table))
     host = dict(
         version=_FORMAT_VERSION,
         config=receiver.config,
@@ -222,8 +223,8 @@ def load_receiver(path: str, device="cuda"):
     rx._phase_ref_prn = int(host.get("phase_ref_prn", 0))
     if "code_table" in data:
         if "code_table_raw" in data:
-            rx.code_table_np = np.asarray(data["code_table_raw"])
-            rx.code_table = rx._device_code_table(rx.code_table_np)
+            raw = upload(data["code_table_raw"], rx.device, torch.float32)
+            rx.code_table = doubled_codes(raw) if rx._doubled_codes else raw
         else:
             # pre-raw checkpoint: the device form as stored (only safe
             # on the tracking path that wrote it)

@@ -38,7 +38,6 @@ import torch
 from ..acquire.engine import AcqResult
 from ..parallel.mesh import Mesh, make_mesh
 from ..parallel.streaming import StreamingTracker, acquire_sharded
-from ..signal.ca_code import ca_table_bipolar
 from ..track.state import TrackOutputs, TrackState, init_state
 from .digest import digest_to_host
 from .receiver import Receiver, handoff
@@ -111,24 +110,22 @@ class MeshReceiver(Receiver):
         self.channels = live
         self._n_live = len(live)
 
-        table = ca_table_bipolar([ch.prn for ch in tracked])
+        prns = [ch.prn for ch in tracked]
         phases = np.array([ch.acq.code_phase_chips for ch in tracked])
         spe = cfg.plan.samples_per_epoch
         e = min(256 if cfg.track.coherent_pll else 32, len(samples) // spe)
         dev = self.device
         with self.profiler.stage("pretrack").time():
             dopplers, refined = handoff(
-                samples, e, table, phases,
+                samples, e, prns, phases,
                 np.array([ch.acq.doppler_hz for ch in tracked]), cfg, dev,
                 self.profiler.stage)
         state = init_state(len(tracked), refined, dopplers,
                            start_epoch=start_epoch,
                            window=cfg.track.pll_check_window, device=dev)
-        # the receiver keeps the padded table (the checkpoint's rows);
-        # the tracker's follows the tracking path (doubled upsampled for
-        # the half-chip paths, bipolar for the reference scan)
-        self.code_table_np = table
-        self.code_table = self._device_code_table(table)
+        # the receiver keeps the padded table (the checkpoint's rows), in
+        # the tracking path's form (the tracker's)
+        self.code_table = self._code_rows(prns)
         self.track_state = state
         self.tracker = StreamingTracker(state, self.code_table, self.mesh,
                                         cfg.plan, cfg.track)
@@ -186,7 +183,6 @@ class MeshReceiver(Receiver):
         self.track_state = TrackState(
             *(x[:n] for x in self.tracker.gather_state(self.device)))
         self.code_table = self.code_table[:n]
-        self.code_table_np = self.code_table_np[:n]
 
     def _reshard_to_tracker(self) -> None:
         """Re-pad the (possibly re-sized) live state to a mesh multiple
@@ -201,9 +197,6 @@ class MeshReceiver(Receiver):
 
         self.track_state = TrackState(*(_pad(x) for x in self.track_state))
         self.code_table = _pad(self.code_table)
-        self.code_table_np = np.concatenate(
-            [self.code_table_np,
-             np.repeat(self.code_table_np[:1], pad, axis=0)])
         self.tracker.load(self.track_state, self.code_table)
         self._n_live = n
 

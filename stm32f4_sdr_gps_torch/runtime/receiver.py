@@ -48,7 +48,7 @@ from ..config import (
 )
 from ..nav.ephemeris import Ephemeris, decode_subframe, getbitu
 from ..nav.frame import NavFramer
-from ..ops.epl import upsampled_code_doubled
+from ..ops.epl import code_rows, raw_codes
 from ..ops.track_scan import (
     outputs_from_raw,
     state_from_track_state,
@@ -59,7 +59,6 @@ from ..pvt.observables import (ChannelObservables, HatchState,
                                boundary_arrival_ms, form_observations)
 from ..pvt.solve import (Solution, identify_grid_fault, pntpos,
                          solution_plausible)
-from ..signal.ca_code import ca_table_bipolar
 from ..track.aided_sync import boundary_from_flip_hist, engage_bit_sync
 from ..track.pretrack import code_search_power, refine_code_phase
 from ..track.scan import track_block
@@ -265,14 +264,15 @@ def weak_prompt_channels(power: np.ndarray, phases, coarse_hz, plan,
     return np.flatnonzero(seen < WEAK_PROMPT_SHARE * power.max(axis=1))
 
 
-def handoff(samples: Samples, epochs: int, table_np: np.ndarray,
-            phases: np.ndarray, coarse_hz: np.ndarray, cfg: ReceiverConfig,
-            device, stage) -> tuple:
+def handoff(samples: Samples, epochs: int, prns, phases: np.ndarray,
+            coarse_hz: np.ndarray, cfg: ReceiverConfig, device,
+            stage) -> tuple:
     """The handoff search of every acquired channel, the one sequence of
     a cold start, a re-acquisition and the mesh's start: ``(dopplers,
     refined)``, (C,) float64 Dopplers (Hz) and code phases (chips) at
     ``samples``' first epoch, from the acquisition's ``phases`` and
-    ``coarse_hz`` and the bipolar codes ``table_np``.
+    ``coarse_hz`` of the channels of ``prns``, whose bipolar codes come
+    from ``ops.epl.code_rows`` (uploaded once a process).
 
     ``pretrack.doppler``: the squared-prompt Doppler search over the
     first ``epochs`` epochs at the acquired phase (the JAX package's
@@ -290,7 +290,7 @@ def handoff(samples: Samples, epochs: int, table_np: np.ndarray,
     with stage("pretrack.doppler").time():
         # fine Doppler: long coherent FFT at the acquired code phase
         # shrinks the handoff error from tens of Hz to ~1 Hz
-        table_d = upload(table_np, device)
+        table_d = code_rows(tuple(prns), False, str(device))
         phases_d = upload(phases, device, torch.float32)
         coarse_d = upload(coarse_hz, device, torch.float32)
         epochs_d = epochs_on(samples, epochs, plan.samples_per_epoch, device)
@@ -344,12 +344,7 @@ class Receiver:
             for p in config.prns
         ]
         self.track_state: Optional[TrackState] = None
-        self.code_table = None
-        # canonical (C, 1023) bipolar table behind code_table: the device
-        # form depends on the tracking path (doubled upsampled for the
-        # half-chip paths, raw for the reference scan), so checkpoints
-        # store this and rebuild the device form on load
-        self.code_table_np: Optional[np.ndarray] = None
+        self.code_table = None       # one row a tracked channel
         self.epoch_cursor = 0        # global sample ledger, epochs (= ms)
         self.solutions: List[Solution] = []
         self.solution_epochs: List[int] = []
@@ -391,14 +386,16 @@ class Receiver:
     def _kernel_scan(self) -> bool:
         return resolve_in_kernel_scan(self.config.track, self.device)
 
-    def _device_code_table(self, table_np: np.ndarray) -> torch.Tensor:
-        """Code table in the form the tracking path needs: the doubled
-        upsampled table for the half-chip paths (cfg.track.use_pallas /
-        the tracking-scan kernel), the raw (C, 1023) bipolar table for the
-        fractional-phase reference scan."""
-        if self.config.track.use_pallas or self._kernel_scan:
-            table_np = upsampled_code_doubled(table_np)
-        return upload(table_np, self.device)
+    @property
+    def _doubled_codes(self) -> bool:
+        """The half-chip paths (cfg.track.use_pallas, the tracking-scan
+        kernel) read the doubled upsampled code, the reference scan the
+        raw (C, 1023) table."""
+        return self.config.track.use_pallas or self._kernel_scan
+
+    def _code_rows(self, prns) -> torch.Tensor:
+        """The tracking path's code rows of ``prns`` (ops.epl.code_rows)."""
+        return code_rows(tuple(prns), self._doubled_codes, str(self.device))
 
     def _to_device(self, samples: Samples, n_epochs: int) -> torch.Tensor:
         """(n_epochs, S) complex64 block on the device: a numpy array is
@@ -466,7 +463,6 @@ class Receiver:
                 ch for ch in self.channels if ch not in live
             ]
             self.channels = live
-            table_np = ca_table_bipolar(prns)
             phases = np.array([ch.acq.code_phase_chips for ch in live])
             coarse = np.array([ch.acq.doppler_hz for ch in live])
             spe = cfg.plan.samples_per_epoch
@@ -476,10 +472,9 @@ class Receiver:
             e = min(fine_epochs, len(samples) // spe)
             dev = self.device
             with stage("pretrack").time():
-                dopplers, refined = handoff(samples, e, table_np, phases,
+                dopplers, refined = handoff(samples, e, prns, phases,
                                             coarse, cfg, dev, stage)
-            self.code_table_np = table_np
-            self.code_table = self._device_code_table(table_np)
+            self.code_table = self._code_rows(prns)
             self.track_state = init_state(
                 len(live), refined, dopplers, start_epoch=start_epoch,
                 window=cfg.track.pll_check_window, device=dev,
@@ -666,18 +661,12 @@ class Receiver:
             # Doppler vector is read back.
             dev = self.device
             span = min(512, n_epochs)
-            prns = [ch.prn for ch in self.channels]
-            if len(prns) < n_chan:
-                # mesh ghost padding repeats channel 0
-                prns = prns + [prns[0]] * (n_chan - len(prns))
-            table = torch.as_tensor(ca_table_bipolar(prns[:n_chan]),
-                                    device=dev)
-            dops = self.track_state.doppler_hz.cpu().numpy()
-            refined = refine_doppler_device(
-                epochs[:span].to(dev), table,
-                torch.as_tensor(np.asarray(cp0, np.float32), device=dev),
+            dops = readback(self.track_state.doppler_hz)
+            refined = readback(refine_doppler_device(
+                epochs[:span].to(dev), raw_codes(self.code_table),
+                upload(np.asarray(cp0, np.float32), dev),
                 self.track_state.doppler_hz, cfg.plan,
-            ).cpu().numpy()
+            ))
             acted_mask = engage | unhealthy
             new_dops = np.where(acted_mask[: len(dops)], refined, dops)
             if engage.any():
@@ -691,7 +680,7 @@ class Receiver:
                         self.aided_engagements[prn] = \
                             self.aided_engagements.get(prn, 0) + 1
             if unhealthy.any():
-                un = torch.as_tensor(unhealthy, device=dev)
+                un = upload(unhealthy, dev)
                 ts = self.track_state
                 self.track_state = ts._replace(
                     period_sync_ok=torch.where(un, False, ts.period_sync_ok),
@@ -700,8 +689,7 @@ class Receiver:
                         ts.right_period_cnt),
                 )
             self.track_state = self.track_state._replace(
-                doppler_hz=torch.as_tensor(new_dops, dtype=torch.float32,
-                                           device=dev)
+                doppler_hz=upload(new_dops, dev, torch.float32)
             )
             acted = engage | unhealthy
             self._aided_low_conf = np.where(
@@ -1011,9 +999,8 @@ class Receiver:
         if not hits:
             return []
         new_prns = [ch.prn for ch, _ in hits]
-        table_new = ca_table_bipolar(new_prns)
         dopplers, phases = handoff(
-            window, min(32, len(window) // spe), table_new,
+            window, min(32, len(window) // spe), new_prns,
             np.array([res.code_phase_chips for _, res in hits]),
             np.array([res.doppler_hz for _, res in hits]), cfg, dev,
             self.profiler.stage)
@@ -1029,10 +1016,7 @@ class Receiver:
                                device=dev)
         self.track_state = concat_states(self.track_state, new_state)
         self.code_table = torch.cat(
-            [self.code_table, self._device_code_table(table_new)], dim=0)
-        if self.code_table_np is not None:
-            self.code_table_np = np.concatenate(
-                [self.code_table_np, table_new], axis=0)
+            [self.code_table, self._code_rows(new_prns)], dim=0)
         for ch, res in hits:
             ch.acq = res
             ch.state_name = "TRACKING"
@@ -1080,8 +1064,6 @@ class Receiver:
         keep_t = torch.as_tensor(keep, device=self.device)
         self.track_state = TrackState(*(x[keep_t] for x in self.track_state))
         self.code_table = self.code_table[keep_t]
-        if self.code_table_np is not None:
-            self.code_table_np = self.code_table_np[keep]
         dropped = []
         for c in sorted(dead, reverse=True):
             ch = self.channels.pop(c)

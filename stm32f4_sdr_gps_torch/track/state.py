@@ -100,7 +100,8 @@ def init_state(
     """``window`` = watchdog sign-window width; must equal the
     TrackConfig.pll_check_window the state will be scanned with.  The
     state lives on ``device``: the card unless the caller asks for the
-    CPU; raises without a card."""
+    CPU; raises without a card.  Each host vector is uploaded once
+    (``acq_doppler_hz`` is a device copy of ``doppler_hz``)."""
     device = card_or_cpu(device, "init_state")
     c = num_channels
     if window is None:
@@ -115,9 +116,10 @@ def init_state(
 
     zf = full(0.0, torch.float32)
     zi = full(0, torch.int32)
+    dop = f32(doppler_hz)
     return TrackState(
         carrier_phase_cycles=zf,
-        doppler_hz=f32(doppler_hz),
+        doppler_hz=dop,
         code_phase_chips=f32(np.asarray(code_phase_chips) % CODE_LENGTH),
         dll_err_prev=zf,
         pll_err_prev=zf,
@@ -128,7 +130,7 @@ def init_state(
                                    device=device),
         pll_bad_cnt=zi,
         pll_bad_master_cnt=zi,
-        acq_doppler_hz=f32(doppler_hz),
+        acq_doppler_hz=dop.clone(),
         snr_i_sum=zf,
         snr_q_sum=zf,
         snr_cnt=zi,

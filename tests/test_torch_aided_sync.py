@@ -135,7 +135,8 @@ def _sats(prns=PRNS3, cn0=45.0):
 
 def _step_receivers(window_ms):
     """A JAX and a port Receiver with the same three live channels and
-    tracking state, ready for _aided_sync_step."""
+    tracking state (and the port's code table, which its Doppler
+    re-anchor reads), ready for _aided_sync_step."""
     kw = dict(prns=PRNS3, enable_position=False,
               aided_sync_window_ms=window_ms)
     jrx = JReceiver(JReceiverConfig(track=J_COHERENT, **kw))
@@ -146,6 +147,7 @@ def _step_receivers(window_ms):
     rx.channels = [ChannelStatus(prn=p) for p in PRNS3]
     jrx.track_state = j_init_state(3, cp, dop, start_epoch=0)
     rx.track_state = init_state(3, cp, dop, start_epoch=0, device="cpu")
+    rx.code_table = rx._code_rows(PRNS3)
     return jrx, rx
 
 

@@ -28,6 +28,7 @@ from stm32f4_sdr_gps_tpu.runtime import checkpoint as jck
 from stm32f4_sdr_gps_tpu.runtime.receiver import Receiver as JReceiver
 from stm32f4_sdr_gps_torch import convert
 from stm32f4_sdr_gps_torch.config import ReceiverConfig, TrackConfig
+from stm32f4_sdr_gps_torch.ops.epl import raw_codes
 from stm32f4_sdr_gps_torch.runtime import checkpoint as tck
 from stm32f4_sdr_gps_torch.runtime import receiver as trx
 from stm32f4_sdr_gps_torch.runtime.receiver import Receiver
@@ -185,7 +186,8 @@ def test_checkpoint_code_table_is_path_portable(short_capture, tmp_path,
     monkeypatch.setattr(trx, "resolve_in_kernel_scan", lambda cfg, dev: True)
     rx2 = tck.load_receiver(p, device="cpu")
     assert rx2.code_table.shape[-1] >= 2 * 2046
-    assert rx2.code_table_np.shape[-1] == 1023
+    assert raw_codes(rx2.code_table).shape[-1] == 1023
+    assert torch.equal(raw_codes(rx2.code_table), rx.code_table)
     monkeypatch.undo()
     rx3 = tck.load_receiver(p, device="cpu")
     assert rx3.code_table.shape[-1] == 1023

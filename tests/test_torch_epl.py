@@ -112,6 +112,27 @@ def test_dispatcher_runs_plain_version_on_cpu():
     assert epl.epl_correlate_cuda.launches == launches
 
 
+@pytest.mark.parametrize("doubled", [False, True],
+                         ids=["reference", "halfchip"])
+@pytest.mark.parametrize("prns", [tuple(range(1, 33)), (3, 11, 19, 27),
+                                  (5, 18, 5, 5)],
+                         ids=["32prn", "4prn", "ghosts"])
+def test_code_rows_are_the_host_tables(prns, doubled):
+    """``code_rows`` against the host tables, bit for bit: the doubled
+    form is ``upsampled_code_doubled`` of ``ca_table_bipolar``, the other
+    ``ca_table_bipolar``; ``raw_codes`` of either is ``ca_table_bipolar``;
+    a second call returns the same tensor."""
+    table = epl.code_rows(prns, doubled, "cpu")
+    host = ca_table_bipolar(prns)
+    want = epl.upsampled_code_doubled(host) if doubled else host
+    assert table.dtype == torch.float32 and table.device.type == "cpu"
+    np.testing.assert_array_equal(table.numpy(), want)
+    raw = epl.raw_codes(table)
+    assert raw.is_contiguous()
+    np.testing.assert_array_equal(raw.numpy(), host)
+    assert epl.code_rows(prns, doubled, "cpu") is table
+
+
 def _track(num_epochs, monkeypatch=None):
     x, sats = _scenario(num_epochs, seed=11)
     epochs = torch.as_tensor(x.reshape(num_epochs, S))

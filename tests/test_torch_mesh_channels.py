@@ -33,7 +33,8 @@ from stm32f4_sdr_gps_torch.config import ReceiverConfig, TrackConfig
 from stm32f4_sdr_gps_torch.parallel.mesh import make_mesh
 from stm32f4_sdr_gps_torch.runtime.mesh_receiver import MeshReceiver
 from tests.test_torch_reacquire import (CIB, _late_rise_capture,
-                                        _setting_capture)
+                                        _setting_capture,
+                                        assert_rows_follow_channels)
 
 torch.set_num_threads(2)
 
@@ -43,7 +44,8 @@ MESH = (1, 2)
 def _run(pkg, x, shape, **cfg):
     """MeshReceiver.run with the late-rise config on a ``shape`` mesh;
     returns the receiver, its report and the live PRNs after every
-    block."""
+    block (and for the port, checks its padded code rows after every
+    block)."""
     kw = dict(prns=(5, 18), enable_position=False, track_block_epochs=250,
               reacquire_period_ms=500, device_digest=True, **cfg)
     trk = dict(codes_in_bit=CIB, pll_bad_state_threshold=10**9)
@@ -57,8 +59,13 @@ def _run(pkg, x, shape, **cfg):
         rx = MeshReceiver(ReceiverConfig(track=TrackConfig(**trk), **kw),
                           make_mesh(*shape, devices=["cpu"] * n))
     live = []
-    report = rx.run(x, status_callback=lambda r: live.append(
-        (r.epoch_cursor, tuple(ch.prn for ch in r.channels))))
+
+    def status(r):
+        live.append((r.epoch_cursor, tuple(ch.prn for ch in r.channels)))
+        if pkg != "jax":
+            assert_rows_follow_channels(r)
+
+    report = rx.run(x, status_callback=status)
     return rx, report, live
 
 

@@ -22,7 +22,9 @@ from stm32f4_sdr_gps_tpu.config import TrackConfig as JTrackConfig
 from stm32f4_sdr_gps_tpu.runtime.receiver import Receiver as JReceiver
 from stm32f4_sdr_gps_tpu.signal.simulator import SimSat, simulate_capture
 from stm32f4_sdr_gps_torch.config import AcqConfig, ReceiverConfig, TrackConfig
+from stm32f4_sdr_gps_torch.ops.epl import raw_codes
 from stm32f4_sdr_gps_torch.runtime.receiver import ChannelStatus, Receiver
+from stm32f4_sdr_gps_torch.signal.ca_code import ca_table_bipolar
 from stm32f4_sdr_gps_torch.track.state import init_state
 from tests.test_receiver import CIB as RX_CIB
 from tests.test_receiver import PRNS, _make_capture
@@ -59,9 +61,20 @@ def _setting_capture():
     return xa + xb, None
 
 
+def assert_rows_follow_channels(rx):
+    """The (C, 1023) rows behind ``rx.code_table`` are the bipolar codes
+    of the tracked PRNs in row order, a mesh's ghost copies of channel 0
+    included."""
+    prns = [ch.prn for ch in rx.channels]
+    prns += prns[:1] * (rx.code_table.shape[0] - len(prns))
+    np.testing.assert_array_equal(raw_codes(rx.code_table).cpu().numpy(),
+                                  ca_table_bipolar(prns))
+
+
 def _run(pkg, x, **cfg):
     """Receiver.run with the late-rise config; returns the receiver, its
-    report and the live PRNs after every block."""
+    report and the live PRNs after every block (and for the port, checks
+    its code rows after every block: re-acquisitions and demotions)."""
     kw = dict(prns=(5, 18), enable_position=False, track_block_epochs=250,
               reacquire_period_ms=500, **cfg)
     trk = dict(codes_in_bit=CIB, pll_bad_state_threshold=10**9)
@@ -71,8 +84,13 @@ def _run(pkg, x, **cfg):
         rx = Receiver(ReceiverConfig(track=TrackConfig(**trk), **kw),
                       device="cpu")
     live = []
-    report = rx.run(x, status_callback=lambda r: live.append(
-        (r.epoch_cursor, tuple(ch.prn for ch in r.channels))))
+
+    def status(r):
+        live.append((r.epoch_cursor, tuple(ch.prn for ch in r.channels)))
+        if pkg != "jax":
+            assert_rows_follow_channels(r)
+
+    report = rx.run(x, status_callback=status)
     return rx, report, live
 
 
@@ -230,4 +248,6 @@ def test_acq_timeout_widens_search():
     assert abs(rx.channels[-1].acq.doppler_hz - (-400.0)) < 300.0
     assert sb.last_healthy_ms == 980
     assert rx.track_state.epoch_idx.tolist()[-1] == 980
-    assert rx.code_table.shape[0] == 4 and rx.code_table_np.shape == (4, 1023)
+    assert rx.code_table.shape[0] == 4
+    assert raw_codes(rx.code_table).shape == (4, 1023)
+    assert_rows_follow_channels(rx)

@@ -7,7 +7,10 @@ acquisition, handoff): under a ``torch.profiler`` its trace holds the
 program's spans as ``user_annotation`` events; with none active the span
 path calls nothing of ``torch.profiler``; and its ``readback`` and
 ``upload`` counts are every ``.cpu()`` and every tensor made from host
-data in the start, counted by patching those calls around it.
+data in the start, counted by patching those calls around it.  Its code
+table and TrackState equal those built from host tables, bit for bit; the
+code table is uploaded once a process for a PRN set, and ``init_state``
+uploads each host vector once.
 """
 
 import json
@@ -15,18 +18,23 @@ import sys
 import threading
 import time
 
+import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from stm32f4_sdr_gps_torch.config import (REFERENCE_PLAN, ReceiverConfig,
-                                          TrackConfig)
+from stm32f4_sdr_gps_torch.config import (CODE_LENGTH, REFERENCE_PLAN,
+                                          ReceiverConfig, TrackConfig)
 from stm32f4_sdr_gps_torch.io.status import render_status
+from stm32f4_sdr_gps_torch.ops import epl
+from stm32f4_sdr_gps_torch.runtime import receiver
 from stm32f4_sdr_gps_torch.runtime.receiver import Receiver
+from stm32f4_sdr_gps_torch.signal.ca_code import ca_table_bipolar
 from stm32f4_sdr_gps_torch.signal.capture import (
     pack_bits_lsb16, reference_to_baseband_device)
 from stm32f4_sdr_gps_torch.signal.simulator import SimSat, simulate_capture
 from stm32f4_sdr_gps_torch.utils import profiling
+from stm32f4_sdr_gps_torch.track.state import TrackState, init_state
 from stm32f4_sdr_gps_torch.utils.profiling import Profiler, count, span
 
 torch.set_num_threads(2)
@@ -175,13 +183,23 @@ def test_an_exception_closes_the_span():
     assert _last(1)[0].parent is None
 
 
-def test_stage_timer_keeps_its_meaning():
+def test_stage_timer_keeps_its_meaning(monkeypatch):
+    # a clock that steps 1 us a read, and by ``dt`` where the span's work
+    # would take that long: the budget is judged on these durations, not
+    # on how a loaded machine schedules a sleep
+    clock = [0.0]
+
+    def perf_counter():
+        clock[0] += 1e-6
+        return clock[0]
+
+    monkeypatch.setattr(profiling, "perf_counter", perf_counter)
     prof = Profiler()
     st = prof.stage("work", budget_s=0.002)
     assert prof.stage("work") is st
     for dt in (0.0, 0.004, 0.0):
         with st.time():
-            time.sleep(dt)
+            clock[0] += dt
     assert st.calls == 3 and st.overruns == 1
     assert st.total_s >= 0.004 and st.last_s < 0.002
     assert st.mean_s == pytest.approx(st.total_s / 3)
@@ -219,10 +237,10 @@ def words():
     return pack_bits_lsb16(x)
 
 
-def _cold_start(words):
+def _cold_start(words, **track):
     """What a cold start does: a fresh Receiver handed SPI words, which
     it conditions, acquires on and hands over to tracking."""
-    rx = Receiver(ReceiverConfig(prns=PRNS, track=TrackConfig()),
+    rx = Receiver(ReceiverConfig(prns=PRNS, track=TrackConfig(**track)),
                   device="cpu")
     x = reference_to_baseband_device(words, device="cpu")
     rx.acquire_all(x)
@@ -313,3 +331,89 @@ def test_copy_counters_equal_the_patched_calls(words, monkeypatch):
     recs = _since(t0)
     for k in seen:
         assert sum(r.counts.get(k, 0) for r in recs) == seen[k]
+
+
+TRACK_FORMS = pytest.mark.parametrize(
+    "track", [{}, {"in_kernel_scan": True}],
+    ids=["reference_scan", "kernel_scan"])
+
+
+@TRACK_FORMS
+def test_cold_start_equals_host_built_tables(words, monkeypatch, track):
+    """A cold start's code table and TrackState equal, bit for bit, those
+    of the same start with the tables built on the host: the bipolar
+    codes by ``ca_table_bipolar``, the doubled form by
+    ``upsampled_code_doubled``, each uploaded, and ``init_state``'s
+    Dopplers and code phases each uploaded from the host."""
+    rx = _cold_start(words, **track)
+
+    def host_rows(prns, doubled, device):
+        t = ca_table_bipolar(prns)
+        return torch.as_tensor(
+            epl.upsampled_code_doubled(t) if doubled else t, device=device)
+
+    out = []
+    handoff = receiver.handoff
+
+    def kept(*a, **k):
+        out.append(handoff(*a, **k))
+        return out[-1]
+
+    monkeypatch.setattr(receiver, "code_rows", host_rows)
+    monkeypatch.setattr(receiver, "handoff", kept)
+    old = _cold_start(words, **track)
+    (dop, cp), = out
+    assert old.code_table.shape[-1] == (epl.U2P if track else CODE_LENGTH)
+    assert rx.code_table.dtype == old.code_table.dtype
+    assert torch.equal(rx.code_table, old.code_table)
+
+    def host(v):
+        return torch.as_tensor(np.array(np.broadcast_to(v, (len(dop),)),
+                                        np.float32))
+
+    want = old.track_state._replace(
+        doppler_hz=host(dop), acq_doppler_hz=host(dop),
+        code_phase_chips=host(np.asarray(cp) % CODE_LENGTH))
+    for f, got, w in zip(TrackState._fields, rx.track_state, want):
+        assert got.dtype == w.dtype and torch.equal(got, w), f
+
+
+@TRACK_FORMS
+def test_code_table_is_uploaded_once_a_process(words, monkeypatch, track):
+    """The first start of a PRN set uploads its bipolar codes once (the
+    doubled form is gathered from them on the device); a second start of
+    the same set uploads no code table and hands over the same tensor:
+    the whole start makes one upload fewer."""
+    _cold_start(words, **track)         # what else a process makes once
+    epl.code_rows.cache_clear()
+    seen = []
+    upload = epl.upload
+
+    def counted(*a, **k):
+        seen.append(a[0].shape)
+        return upload(*a, **k)
+
+    def uploads(start):
+        c0 = profiling.counters.get("upload", 0)
+        return start(), profiling.counters.get("upload", 0) - c0
+
+    monkeypatch.setattr(epl, "upload", counted)
+    first, n_first = uploads(lambda: _cold_start(words, **track))
+    assert seen == [(len(PRNS), CODE_LENGTH)]
+    second, n_second = uploads(lambda: _cold_start(words, **track))
+    assert seen == [(len(PRNS), CODE_LENGTH)]
+    assert second.code_table is first.code_table
+    assert n_first == n_second + 1
+
+
+def test_init_state_uploads_each_vector_once():
+    """``init_state`` uploads the Dopplers and the code phases once each:
+    ``acq_doppler_hz`` is a device copy of ``doppler_hz``, equal and in
+    storage of its own."""
+    c0 = profiling.counters.get("upload", 0)
+    st = init_state(3, np.array([1.5, 2.5, 1030.0]),
+                    np.array([-1200.25, 0.0, 3400.5]), device="cpu")
+    assert profiling.counters.get("upload", 0) - c0 == 2
+    assert torch.equal(st.acq_doppler_hz, st.doppler_hz)
+    assert st.acq_doppler_hz.data_ptr() != st.doppler_hz.data_ptr()
+    assert st.code_phase_chips.tolist() == pytest.approx([1.5, 2.5, 7.0])
