@@ -291,7 +291,9 @@ before the result line):
    the kernel equal to its host build bit for bit, one launch a window;
    its device time a window (queued) beside its bytes bound, an empty
    kernel's, the plain version's and the whole ingest's from host
-   memory.
+   memory, standalone (pageable) and as a window of a buffer three
+   windows long (page-locked once, utils/device.py ``HostPages``), each
+   with its GB/s, the two basebands equal bit for bit.
 29. the SoftGNSS deployment's cold start on the main path
    (``int8_coldstart_phase``): three 266-epoch windows of a 38.192 MHz
    int8 capture of 8 satellites (the port's simulator at 50 dBHz,
@@ -3460,7 +3462,8 @@ def main():
         "max_rel_err": max(c["max_rel_err"] for c in ingest_rec.values()),
         **{k: ingest_rec["sigma_8_a"][k]
            for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                     "roofline_pct", "ingest_ms")},
+                     "roofline_pct", "ingest_ms", "ingest_registered_ms",
+                     "ingest_gbps", "ingest_registered_gbps")},
         "library_ms": None,
         "cases": ingest_rec,
         "int8_coldstart": int8_rec,

@@ -16,7 +16,14 @@ window.  Timed with CUDA events: the kernel's device time a window
 (launches queued behind a device sleep), its bound (the bytes, read once
 and written once, over 3.35 TB/s, the H100 SXM data sheet's at 700 W),
 the plain version's time, and the whole ingest from host memory
-(``if_to_baseband_device``: the pageable upload and the launch).
+(``if_to_baseband_device``: the upload and the launch) two ways: the
+window standalone (``ingest_ms``: a pageable upload, which CUDA stages
+through its own buffers) and the same bytes as the middle window of a
+buffer three windows long (``ingest_registered_ms``: the buffer
+page-locked once, ``utils.device.HostPages``, then a DMA from it), each
+with its effective GB/s (the window's bytes over the whole ingest's
+time; the window is warm in the host's caches after the first call).
+The two give the same baseband bit for bit (checked).
 
     python -m stm32f4_sdr_gps_torch.probes.if_resample
 
@@ -105,23 +112,43 @@ def check(x: np.ndarray, device) -> dict:
             "launches": launches}
 
 
+def in_buffer(x: np.ndarray) -> np.ndarray:
+    """``x``'s bytes as the middle window of a buffer three windows long
+    (the rest zeros): a view, as a recording held whole hands it over."""
+    buf = np.zeros(3 * x.size, np.int8)
+    buf[x.size: 2 * x.size] = x
+    return buf[x.size: 2 * x.size]
+
+
+def ingest(x: np.ndarray, device) -> torch.Tensor:
+    return cap.if_to_baseband_device(x, FS, IF, device=device)
+
+
 def timed(x: np.ndarray, device) -> dict:
     """ms: the kernel a window (queued), the plain version, the whole
-    ingest from host memory, an empty kernel queued the same way."""
+    ingest from host memory (standalone and registered, with their GB/s),
+    an empty kernel queued the same way."""
     plan = cap.if_resample_plan(FS)
     xd = torch.as_tensor(x, device=device)
     taps = torch.as_tensor(plan.shifted, device=device)
+    xr = in_buffer(x)
+    if not torch.equal(ingest(xr, device), ingest(x, device)):
+        raise IfResampleCheckError("the registered window's baseband "
+                                   "differs from the pageable one's")
 
     def kernel():
         return cap.if_resample_cuda(xd, plan, taps)
 
     warm_up(kernel)
-    return {"ms": queued_ms(kernel, 3, 100),
-            "floor_ms": queued_ms(lambda: torch.cuda._sleep(1), 3, 100),
-            "plain_ms": event_ms(lambda: cap.if_to_baseband_plain(xd, plan),
-                                 3),
-            "ingest_ms": event_ms(lambda: cap.if_to_baseband_device(
-                x, FS, IF, device=device), 5)}
+    rec = {"ms": queued_ms(kernel, 3, 100),
+           "floor_ms": queued_ms(lambda: torch.cuda._sleep(1), 3, 100),
+           "plain_ms": event_ms(lambda: cap.if_to_baseband_plain(xd, plan),
+                                3),
+           "ingest_ms": event_ms(lambda: ingest(x, device), 5),
+           "ingest_registered_ms": event_ms(lambda: ingest(xr, device), 5)}
+    for k in ("ingest", "ingest_registered"):
+        rec[k + "_gbps"] = x.nbytes / rec[k + "_ms"] * 1e-6
+    return rec
 
 
 def run(device="cuda") -> dict:
@@ -143,7 +170,11 @@ def run(device="cuda") -> dict:
               f"{rec['bound_ms'] * 1e3:.3f} us (bytes), "
               f"{rec['roofline_pct']:.1f} % of it; plain "
               f"{rec['plain_ms']:.3f} ms, the whole ingest from host memory "
-              f"{rec['ingest_ms']:.3f} ms", flush=True)
+              f"{rec['ingest_ms']:.3f} ms standalone ("
+              f"{rec['ingest_gbps']:.2f} GB/s, pageable), "
+              f"{rec['ingest_registered_ms']:.3f} ms as a window of a "
+              f"larger buffer ({rec['ingest_registered_gbps']:.2f} GB/s, "
+              f"page-locked)", flush=True)
     return out
 
 

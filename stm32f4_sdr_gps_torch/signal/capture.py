@@ -39,7 +39,7 @@ import torch
 
 from ..config import REFERENCE_PLAN, SignalPlan
 from ..utils import graphs
-from ..utils.device import card_or_cpu, upload
+from ..utils.device import card_or_cpu, upload, upload_window
 from ..utils.profiling import count, span
 
 REF_DECIMATION = 8  # 16.368 MHz -> 2.046 MHz
@@ -372,7 +372,9 @@ def if_to_baseband_device(samples, sample_rate_hz: float, if_hz: float,
     frames that starts at an epoch boundary, and returns complex64
     baseband at 2.046 MHz on the device, L outputs a frame (2,046 a
     millisecond): the int8 samples uploaded (one ``upload``; the
-    counter ``condition.bytes`` adds their bytes), mixed by the exact
+    counter ``condition.bytes`` adds their bytes; a window of a larger
+    host buffer, or a pinned tensor, crosses by DMA from page-locked
+    memory, ``utils.device.upload_window``), mixed by the exact
     quarter-rate sequence [1, -j, -1, j] and resampled by the polyphase
     low-pass of :func:`if_resample_taps` (up L, down M; zeros before the
     window's first sample), in one launch of ``csrc/if_resample.cu`` on
@@ -395,9 +397,13 @@ def if_to_baseband_device(samples, sample_rate_hz: float, if_hz: float,
             if not x.is_contiguous() or x.data_ptr() % 16:
                 x = x.clone(memory_format=torch.contiguous_format)
         else:
-            host = np.ascontiguousarray(samples, dtype=np.int8)
+            host = samples
+            if not (isinstance(samples, torch.Tensor) and samples.is_pinned()
+                    and samples.dtype == torch.int8
+                    and samples.is_contiguous()):
+                host = np.ascontiguousarray(samples, dtype=np.int8)
             count("condition.bytes", host.nbytes)
-            x = upload(host, device)
+            x = upload_window(host, device)
         if device.type == "cuda":
             return if_resample_cuda(
                 x, plan, _device_taps(float(sample_rate_hz), str(device)))

@@ -4,7 +4,9 @@ E/P/L correlator (K2), the correlator-bank probe (P5), the epoch-cost
 probes (P6-P8), the roll probes (P1-P4) and the handoff search's
 kernels (csrc/pretrack.cu); K1 once a position of a mesh that repeats
 the card; the captured tracking programs and the captured acquisition
-(utils.graphs) replayed against their eager runs, bit for bit.
+(utils.graphs) replayed against their eager runs, bit for bit; the
+int8 ingest from page-locked windows (utils/device.py ``HostPages``)
+against the pageable path, bit for bit.
 
 Needs an NVIDIA GPU and nvcc; every test skips without a CUDA device.
 Imports only the port, torch and numpy (the machine with the card has no
@@ -741,3 +743,109 @@ def test_cold_start_handoff_on_kernels(dev):
     by = {r.name: r for r in list(profiling.spans)[n:]}
     assert by["pretrack.code"].counts.get("upload", 0) == 0
     assert len(rx.channels) == 4
+
+
+# ------------------------------------------- page-locked windows (HostPages)
+
+#: the real-IF front end (SoftGNSS): 38,192 int8 samples a millisecond
+INT8_FS, INT8_IF, INT8_SPE = 38192000.0, 9548000.0, 38192
+
+
+def _int8_capture(epochs, seed):
+    rng = np.random.default_rng(seed)
+    x = np.round(rng.standard_normal(epochs * INT8_SPE) * 8.0)
+    return np.clip(x, -127, 127).astype(np.int8)
+
+
+def _moved(before, *names):
+    from stm32f4_sdr_gps_torch.utils import profiling
+
+    return {k: profiling.counters.get(k, 0) - before.get(k, 0)
+            for k in names}
+
+
+def test_registered_window_baseband_equals_the_pageable_path(dev):
+    """A 266 ms window of a capture three windows long crosses from
+    page-locked memory and gives the pageable copy's baseband bit for
+    bit; so does a pinned tensor of the same bytes."""
+    from stm32f4_sdr_gps_torch.signal import capture as cap
+    from stm32f4_sdr_gps_torch.utils import profiling
+
+    capture = _int8_capture(3 * 266, 41)
+    window = capture[266 * INT8_SPE: 532 * INT8_SPE]
+    want = cap.if_to_baseband_device(window.copy(), INT8_FS, INT8_IF,
+                                     device=dev)
+    before = dict(profiling.counters)
+    got = cap.if_to_baseband_device(window, INT8_FS, INT8_IF, device=dev)
+    pinned = torch.from_numpy(window).pin_memory()
+    got_pinned = cap.if_to_baseband_device(pinned, INT8_FS, INT8_IF,
+                                           device=dev)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(got_pinned, want)
+    assert _moved(before, "upload", "upload.registered", "upload.register",
+                  "upload.register_failed") == {
+        "upload": 2, "upload.registered": 2, "upload.register": 1,
+        "upload.register_failed": 0}
+
+
+def test_a_buffer_dropped_and_allocated_again_yields_its_new_bytes(dev):
+    """Each round frees the last capture and fills a new one of the same
+    size (the allocator tends to hand back the same address): the window
+    uploaded is the new capture's, and every capture's registration is
+    taken and released."""
+    import gc
+
+    from stm32f4_sdr_gps_torch.utils import device, profiling
+
+    n, w = 64 * INT8_SPE, 16 * INT8_SPE
+    before = dict(profiling.counters)
+    owners = set(device.host_pages._owners)
+    addresses = set()
+    for k in range(6):
+        capture = np.full(n, k - 3, np.int8)
+        capture[w: 2 * w] = (np.arange(w) + k) % 251 - 125
+        addresses.add(capture.ctypes.data)
+        got = device.upload_window(capture[w: 2 * w], dev)
+        assert torch.equal(got.cpu(), torch.from_numpy(capture[w: 2 * w]))
+        del capture
+        gc.collect()
+    assert _moved(before, "upload.registered", "upload.register",
+                  "upload.register_failed") == {
+        "upload.registered": 6, "upload.register": 6,
+        "upload.register_failed": 0}
+    assert set(device.host_pages._owners) == owners
+    print(f"{len(addresses)} addresses over 6 captures")
+
+
+def test_a_refused_registration_leaves_no_error_behind(dev):
+    """A capture registered already (here by the test, through the same
+    libcuda call) is refused: its windows cross pageable with the right
+    bytes, the refusal is counted once, and the next kernel launch and
+    synchronise on the card succeed."""
+    import gc
+
+    from stm32f4_sdr_gps_torch.utils import device, profiling
+
+    capture = _int8_capture(40, 43)
+    owners = set(device.host_pages._owners)
+    torch.ones(1, device=dev)
+    assert device.host_pages.register(capture.ctypes.data,
+                                      capture.nbytes) == 0
+    try:
+        before = dict(profiling.counters)
+        for k in range(3):
+            win = capture[k * 10 * INT8_SPE:(k + 1) * 10 * INT8_SPE]
+            got = device.upload_window(win, dev)
+            y = torch.ones(8, device=dev) * 2
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), torch.from_numpy(win))
+            assert float(y.sum()) == 16.0
+        assert _moved(before, "upload", "upload.registered",
+                      "upload.register", "upload.register_failed") == {
+            "upload": 3, "upload.registered": 0, "upload.register": 0,
+            "upload.register_failed": 1}
+    finally:
+        assert device.host_pages.unregister(capture.ctypes.data) == 0
+    del capture, win
+    gc.collect()
+    assert set(device.host_pages._owners) == owners
