@@ -37,8 +37,8 @@ from ..ops.correlate import (
 )
 from ..ops.wipeoff import doppler_rotations
 from ..utils import graphs
-from ..utils.device import card_or_cpu, readback, upload
-from ..utils.profiling import count
+from ..utils.device import card_or_cpu, readback, upload, upload_window
+from ..utils.profiling import count, span
 
 
 @dataclass
@@ -303,17 +303,23 @@ def epochs_on(samples, e: int, s: int, device) -> torch.Tensor:
     on ``device``.
 
     ``samples`` is a flat numpy array or a flat ``torch.Tensor``.  A numpy
-    array takes one host-to-device copy (counted as an ``upload`` and an
-    ``upload.samples``, ``utils.profiling.count``).  A
+    array takes one host-to-device copy in the span ``samples``, counted
+    as an ``upload``, an ``upload.samples`` and its bytes in
+    ``samples.bytes`` (``utils.profiling.count``); a complex64 view into
+    a recording held whole crosses by DMA from its page-locked owner
+    (``utils.device.upload_window``).  A
     complex64 tensor already on ``device`` is used in place: the result
     is a view of it, with no copy.  Any other tensor is cast to complex64
     and moved to ``device`` explicitly, as the numpy path casts."""
     if isinstance(samples, torch.Tensor):
         return samples[: e * s].reshape(e, s).to(device=device,
                                                  dtype=torch.complex64)
-    count("upload.samples")
-    return upload(np.ascontiguousarray(samples[: e * s].reshape(e, s),
-                                       dtype=np.complex64), device)
+    window = np.ascontiguousarray(samples[: e * s].reshape(e, s),
+                                  dtype=np.complex64)
+    with span("samples"):
+        count("upload.samples")
+        count("samples.bytes", window.nbytes)
+        return upload_window(window, device)
 
 
 @functools.lru_cache(maxsize=graphs.MAX_ENTRIES)

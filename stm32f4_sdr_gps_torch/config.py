@@ -370,6 +370,17 @@ class ReceiverConfig:
     # and, if found, correct the fix AND the channel's boundary ledger
     # going forward (ChannelStatus.grid_bias_ms).  False = reject only.
     grid_fault_search: bool = True
+    # The handoff's second Doppler search (runtime.receiver.handoff,
+    # weak_prompt_channels): a channel whose squared-prompt search held
+    # under this share of the code search's peak power in its replica
+    # cells is searched again at its refined code phase.  1/8 (a prompt
+    # a third of the peak's amplitude) catches a replica over half a chip
+    # off.  Complex baseband with rectangular chips at 2 samples a chip
+    # and no filter reads 1/4 in a replica cell half a chip off, which
+    # may leave the search tens to hundreds of Hz off, so such a front
+    # end takes a larger share.  The port's own: the JAX package makes no
+    # second search (runtime.checkpoint leaves it out at its default).
+    weak_prompt_share: float = 0.125
 
     def replace(self, **kw) -> "ReceiverConfig":
         return dataclasses.replace(self, **kw)

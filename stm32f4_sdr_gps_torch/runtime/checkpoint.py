@@ -16,7 +16,10 @@ pickle anywhere), so loading a checkpoint can never execute code it
 carries.  Unknown classes, unknown fields or malformed payloads raise
 instead of instantiating anything.  A checkpoint written by either
 package loads in the other; the JAX-only debugging fields of its
-TrackConfig (``_JAX_ONLY_FIELDS``) are dropped on load here.
+TrackConfig (``_JAX_ONLY_FIELDS``) are dropped on load here, and the
+port's own settings (``_PORT_ONLY_FIELDS``) are written only where they
+differ from their defaults (a checkpoint that sets one does not load in
+the JAX package, which has no such setting).
 
 The checkpoint holds no tracking-scan kernel state: a resumed receiver
 rebuilds it from the TrackState at its first block.
@@ -42,6 +45,9 @@ _FORMAT_VERSION = 2
 # kernels.  Dropped when a checkpoint is loaded; any other unknown field
 # raises.
 _JAX_ONLY_FIELDS = {"TrackConfig": ("pallas_interpret", "ablate")}
+# fields of the port's dataclasses that the JAX package does not have:
+# left out of a checkpoint where they hold their defaults.
+_PORT_ONLY_FIELDS = {"ReceiverConfig": ("weak_prompt_share",)}
 
 
 def _registry() -> dict:
@@ -97,9 +103,12 @@ def _encode(obj):
         name = type(obj).__name__
         if name not in _registry():
             raise TypeError(f"checkpoint: {name} is not allowlisted")
+        own = _PORT_ONLY_FIELDS.get(name, ())
         return {"__dc__": name,
                 "fields": {f.name: _encode(getattr(obj, f.name))
-                           for f in dataclasses.fields(obj)}}
+                           for f in dataclasses.fields(obj)
+                           if f.name not in own
+                           or getattr(obj, f.name) != f.default}}
     if isinstance(obj, dict):
         if not all(isinstance(k, str) for k in obj):
             raise TypeError("checkpoint: only str dict keys supported")

@@ -215,13 +215,14 @@ def push_channel_bit(ch: ChannelStatus, value: int, epoch: int,
         ch.subframe_tow_s = getbitu(sf.bits, 30, 17) * 6.0
 
 
-#: the share of the code search's peak power under which the Doppler
-#: search's replica is held to have carried too little of the signal
-#: (1/8: a prompt a third of the peak's amplitude).  Rectangular chips at
-#: 2 samples a chip read 1 or 1/4 of the peak in a replica cell within half
-#: a chip of the signal, and only the noise in one over half a chip off
-#: (1/(1 + SNR) of an epoch: 0.04 at 44 dBHz).
-WEAK_PROMPT_SHARE = 0.125
+#: the default share of the code search's peak power under which the
+#: Doppler search's replica is held to have carried too little of the
+#: signal (``ReceiverConfig.weak_prompt_share``, 1/8: a prompt a third of
+#: the peak's amplitude).  Rectangular chips at 2 samples a chip read 1 or
+#: 1/4 of the peak in a replica cell within half a chip of the signal, and
+#: only the noise in one over half a chip off (1/(1 + SNR) of an epoch:
+#: 0.04 at 44 dBHz).
+WEAK_PROMPT_SHARE = ReceiverConfig.weak_prompt_share
 
 
 def replica_cell_centre(phases, plan) -> np.ndarray:
@@ -238,7 +239,8 @@ def replica_cell_centre(phases, plan) -> np.ndarray:
 
 
 def weak_prompt_channels(power: np.ndarray, phases, coarse_hz, plan,
-                         epochs: int) -> np.ndarray:
+                         epochs: int, share: Optional[float] = None
+                         ) -> np.ndarray:
     """Indices of the channels whose squared-prompt Doppler search saw too
     little of the signal, from the code search's power alone (``power``,
     (C, K), K half-chip offsets centred on the acquired phase).
@@ -249,9 +251,9 @@ def weak_prompt_channels(power: np.ndarray, phases, coarse_hz, plan,
     ``epochs`` it may cross into the next cell; the code search's power
     in the cell of each of those epochs (a cell is a half-chip offset at 2
     samples a chip), averaged, is what the search had to go on.  A
-    channel under ``WEAK_PROMPT_SHARE`` of its peak power there is
-    returned: its acquired phase lay over half a chip off, or its replica
-    walked over half a chip off partway."""
+    channel under ``share`` (else ``WEAK_PROMPT_SHARE``) of its peak
+    power there is returned: its acquired phase lay over half a chip off,
+    or its replica walked over half a chip off partway."""
     k = power.shape[1]
     w = float(plan.chips_per_sample)
     p = np.asarray(phases, dtype=np.float32).astype(np.float64)
@@ -261,7 +263,9 @@ def weak_prompt_channels(power: np.ndarray, phases, coarse_hz, plan,
             - np.floor(p / w)[:, None]).astype(np.int64)
     idx = np.clip((k - 1) // 2 + cell, 0, k - 1)
     seen = np.take_along_axis(power, idx, axis=1).mean(axis=1)
-    return np.flatnonzero(seen < WEAK_PROMPT_SHARE * power.max(axis=1))
+    if share is None:
+        share = WEAK_PROMPT_SHARE
+    return np.flatnonzero(seen < share * power.max(axis=1))
 
 
 def handoff(samples: Samples, epochs: int, prns, phases: np.ndarray,
@@ -277,10 +281,12 @@ def handoff(samples: Samples, epochs: int, prns, phases: np.ndarray,
     ``pretrack.doppler``: the squared-prompt Doppler search over the
     first ``epochs`` epochs at the acquired phase (the JAX package's
     order).  ``pretrack.code``: the half-chip code search at that Doppler,
-    on what the first search left on ``device``.  Channels the code
+    on what the first search left on ``device``, the window's epochs
+    included: a host window crosses once.  Channels the code
     search moved half a chip or more add to the counter
     ``pretrack.code_moved``.  Where :func:`weak_prompt_channels` finds
-    that the Doppler search's replica held too little of the signal, the
+    that the Doppler search's replica held too little of the signal
+    (under ``cfg.weak_prompt_share`` of the code search's peak), the
     Doppler of those channels is searched again at the refined phase, moved
     to the middle of its replica cell (``pretrack.doppler_again``, span
     and counter: one more upload, launch and readback); elsewhere the
@@ -298,17 +304,23 @@ def handoff(samples: Samples, epochs: int, prns, phases: np.ndarray,
                                            coarse_d, plan)
         dopplers = readback(dopplers_d).astype(np.float64)
     with stage("pretrack.code").time():
-        # the code search on what the Doppler search left on the device:
-        # nothing uploaded again
-        power = code_search_power(samples, table_d, phases, dopplers_d,
+        # the code search on what the Doppler search left on the device,
+        # its epochs too where they cover the search: nothing uploaded
+        # again
+        n_code = min(cfg.track.pre_track_epochs,
+                     len(samples) // plan.samples_per_epoch)
+        searched = epochs_d.reshape(-1) if epochs_d.shape[0] >= n_code \
+            else samples
+        power = code_search_power(searched, table_d, phases, dopplers_d,
                                   plan, cfg.track, device=device,
                                   code_phase_device=phases_d)
-        refined = refine_code_phase(samples, table_d, phases, dopplers_d,
+        refined = refine_code_phase(searched, table_d, phases, dopplers_d,
                                     plan, cfg.track, device=device,
                                     power=power)
     moved = np.abs((refined - phases + 511.5) % 1023.0 - 511.5)
     count("pretrack.code_moved", int((moved >= 0.5).sum()))
-    again = weak_prompt_channels(power, phases, coarse_hz, plan, epochs)
+    again = weak_prompt_channels(power, phases, coarse_hz, plan, epochs,
+                                 cfg.weak_prompt_share)
     if again.size:
         with stage("pretrack.doppler_again").time():
             count("pretrack.doppler_again", int(again.size))

@@ -229,3 +229,35 @@ def test_jax_only_fields_dropped_other_fields_raise(short_capture, tmp_path):
     bad2 = _rewrite_host(p, str(tmp_path / "bad2.npz"), add_class)
     with pytest.raises(ValueError, match="Trojan"):
         tck.load_receiver(bad2, device="cpu")
+
+
+def _host(path):
+    data = np.load(path, allow_pickle=False)
+    return json.loads(data["host_json"].tobytes().decode("utf-8"))
+
+
+@pytest.mark.parametrize("share", [None, 0.5], ids=["default", "set"])
+def test_port_only_setting_is_written_where_it_is_set(short_capture,
+                                                      tmp_path, share):
+    """``ReceiverConfig.weak_prompt_share``, a setting the JAX package
+    lacks: a checkpoint leaves it out at its default (so the JAX package
+    loads it) and keeps it where it is set, which the port loads back
+    and the JAX package refuses, naming it."""
+    x = short_capture[: 600 * SPE]
+    kw = _kw()
+    kw["track"] = TrackConfig(**kw["track"])
+    if share is not None:
+        kw["weak_prompt_share"] = share
+    rx = Receiver(ReceiverConfig(**kw), device="cpu")
+    rx.acquire_all(x)
+    rx.start_tracking(x)
+    p = tck.save_receiver(str(tmp_path / "ck"), rx)
+    fields = _host(p)["__m__"]["config"]["fields"]
+    assert ("weak_prompt_share" in fields) == (share is not None)
+    back = tck.load_receiver(p, device="cpu")
+    assert back.config == rx.config
+    if share is None:
+        assert jck.load_receiver(p).epoch_cursor == rx.epoch_cursor
+    else:
+        with pytest.raises(TypeError, match="weak_prompt_share"):
+            jck.load_receiver(p)

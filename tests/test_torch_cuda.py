@@ -6,7 +6,9 @@ kernels (csrc/pretrack.cu); K1 once a position of a mesh that repeats
 the card; the captured tracking programs and the captured acquisition
 (utils.graphs) replayed against their eager runs, bit for bit; the
 int8 ingest from page-locked windows (utils/device.py ``HostPages``)
-against the pageable path, bit for bit.
+against the pageable path, bit for bit; a cold start on a complex-IQ
+window in host memory against one on a window already on the card, bit
+for bit.
 
 Needs an NVIDIA GPU and nvcc; every test skips without a CUDA device.
 Imports only the port, torch and numpy (the machine with the card has no
@@ -849,3 +851,44 @@ def test_a_refused_registration_leaves_no_error_behind(dev):
     del capture, win
     gc.collect()
     assert set(device.host_pages._owners) == owners
+
+
+def test_host_iq_window_crosses_by_dma_and_hands_over_as_on_the_card(dev):
+    """A cold start on a complex-IQ window that is a view into a capture
+    held whole (the all-in-view cell's host ingest): its two crossings,
+    the 10 acquisition epochs and the 32 of the Doppler search (687,456
+    bytes), go by DMA from the registered capture, and the handoff is
+    the one a window already on the card gives, bit for bit."""
+    from stm32f4_sdr_gps_torch.runtime.receiver import Receiver
+    from stm32f4_sdr_gps_torch.utils import profiling
+
+    sats = [SimSat(prn=p, doppler_hz=d, code_phase_chips=q, cn0_dbhz=c)
+            for p, d, q, c in ((3, -2310.0, 200.25, 45.0),
+                               (5, 1120.0, 611.25, 48.0),
+                               (8, 3470.0, 87.6, 50.0))]
+    x, _ = simulate_capture(sats, num_epochs=120, seed=26)
+    w = x[:60 * 2046]
+    cfg = ReceiverConfig(prns=tuple(range(1, 9)))
+
+    def start(window):
+        rx = Receiver(cfg, device=dev)
+        rx.acquire_all(window)
+        rx.start_tracking(window[10 * 2046:], start_epoch=10)
+        return rx
+
+    before = dict(profiling.counters)
+    host = start(w)
+    torch.cuda.synchronize()
+    moved = _moved(before, "upload.samples", "samples.bytes",
+                   "upload.registered", "upload.register_failed")
+    assert moved == {"upload.samples": 2, "samples.bytes": 687_456,
+                     "upload.registered": 2, "upload.register_failed": 0}
+    before = dict(profiling.counters)
+    card = start(torch.as_tensor(w, device=dev))
+    assert _moved(before, "upload.samples", "samples.bytes") == {
+        "upload.samples": 0, "samples.bytes": 0}
+    assert [c.prn for c in host.channels] == [c.prn for c in card.channels]
+    assert len(host.channels) >= 3
+    for f in ("doppler_hz", "code_phase_chips"):
+        assert torch.equal(getattr(host.track_state, f),
+                           getattr(card.track_state, f)), f
